@@ -24,6 +24,26 @@ Phases, in order; any failure exits non-zero:
      and the pose frame must match the plain render of the same view.
   5. one warm frame under torch.profiler: device time by kernel and the
      device's idle share.
+  6. the backward kernels against their plain versions, at full width:
+     phase 3's color view and a seeded cotangent (g_color, g_depth,
+     g_final_T). Kernel B3's rank-ordered gradient rows must meet the JAX
+     suite's gradient tolerance (atol 1e-3, rtol 1e-2) against its plain
+     version, kernel B4's per-Gaussian sums 1e-5 of each column's RMS
+     against its plain version, and B3 followed by B4 must repeat
+     bitwise. Timed with CUDA events (median of 20 samples; the plain
+     versions over 3), beside `torch.segment_reduce`, the one PyTorch
+     call that computes B4's function.
+  7. the train path: the edit train step at full width (the scene of
+     phase 3, two 512x512 orbit views, the edit config's loss weights and
+     learning-rate scalers, the multiscale-gradient perceptual term),
+     the targets the port's own renders of those views, color-shifted.
+     With the launch counts zeroed: 10 steps, one densify step (its
+     gradient threshold the 99.9th percentile of the accumulated
+     gradients, so that it clones or splits) and 2 more steps. Each of
+     B1-B4 must have launched 2 x 12 times, loss_l1 must fall, every
+     parameter, moment and statistic must stay finite on every slot.
+     Then one step twice from a copied state must give bitwise equal
+     gradients and parameters, and one step runs under torch.profiler.
 Then it prints the kernels' JSON line, the card's name and power limit,
 and, last, {"ok": true, "device": {...}}.
 """
@@ -54,6 +74,16 @@ H100_FP32_PER_S = 67e12      # FP32 outside the tensor cores, same sheet
 B2_OPS_EVALUATED = 19        # f32 ops (one exp counted as 1) per evaluated pair
 B2_OPS_CONTRIB_BASE = 1      # + per contributing pair: w = alpha*T, then a
                              # multiply-add (2) per channel and for depth
+B3_OPS_EVALUATED = 19        # f32 ops to rebuild alpha for a row before n_contrib
+B3_OPS_CONTRIB = 50          # + per contributing pair: c_hat 8, w 1, prefix 2,
+                             # dpower 7, the 10 partials 20, T 2, their sum 10
+TRAIN_STEPS = (10, 2)        # train steps before and after the densify step
+COLOR_SHIFT = (1.2, 0.8, 0.8)
+# configs/edit.yaml: learning-rate scalers and max_steps
+LR_SCALERS = dict(gs_lr_scaler=3.0, gs_final_lr_scaler=2.0,
+                  color_lr_scaler=3.0, opacity_lr_scaler=2.0,
+                  scaling_lr_scaler=2.0, rotation_lr_scaler=2.0)
+EDIT_MAX_STEPS = 2000
 
 
 def nvidia_smi() -> str:
@@ -254,6 +284,7 @@ def check_kernels(proc, gx: int, gy: int, budget: int, label: str,
           f"{out['b2_bound']:.4f} ms ({out['b2_by']}; ops {b2_bound_ops:.4f}, "
           f"bytes {b2_bound_bytes:.4f})", flush=True)
     out["plain_tiles"] = tp
+    out.update(sb=sb, tiles=tk, contrib=contrib)
     return out
 
 
@@ -287,7 +318,9 @@ def phase_kernels(scene, device) -> list:
 
     plain_img = torch.clamp(
         tiles_to_image(main["plain_tiles"].color, gx, gy, SIZE, SIZE), 0.0, 1.0)
-    return cam, plain_img.cpu().numpy(), [
+    view = dict(proc=color_proc, sb=main["sb"], tiles=main["tiles"],
+                contrib=main["contrib"], gx=gx)
+    return cam, plain_img.cpu().numpy(), view, [
         dict(name="B1 binning_key", route="cuda",
              source="gaussianeditor_tpu_torch/csrc/binning_key.cu",
              replaces="gaussianeditor_tpu/ops/binning_sorted.py:150",
@@ -363,24 +396,18 @@ def phase_serve(state, cam, plain_img) -> dict:
     return counts
 
 
-def phase_profile(state) -> None:
-    """Phase 5: where one frame's time goes. A warm `render_frame` of the
-    phase-3 view under torch.profiler: device time by kernel and the
-    device's busy share of the frame's wall time."""
+def profile_once(fn, label: str, top: int = 10) -> None:
+    """Run `fn` once (warm) under torch.profiler and print its wall time,
+    the device's busy and idle shares, and device time by host op and by
+    kernel."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    def frame():
-        return state.render_frame(0.0, 0.0, 0.0, SIZE, False,
-                                  pose=view_pose(), fovx=0.8, fovy=0.8)
-
-    frame()
-    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        frame()
+        fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     # device-side rows (kernels, copies) carry the device time once; host
@@ -392,13 +419,28 @@ def phase_profile(state) -> None:
             (ops if on_host else kernels).append(
                 (e.self_device_time_total / 1e3, e.count, e.key))
     dev_ms = sum(r[0] for r in kernels)
-    print(f"profile of one warm frame (render + PNG): wall {wall_ms:.2f} ms, "
+    print(f"profile of {label}: wall {wall_ms:.2f} ms, "
           f"device busy {dev_ms:.3f} ms ({100 * dev_ms / wall_ms:.1f}%), "
           f"idle {100 * (1 - dev_ms / wall_ms):.1f}%", flush=True)
     for title, rows in (("by host op", ops), ("by kernel", kernels)):
         print(f" device time {title}:")
-        for ms, count, key in sorted(rows, reverse=True)[:10]:
+        for ms, count, key in sorted(rows, reverse=True)[:top]:
             print(f"  {ms:9.3f} ms  x{count:<3d} {key[:90]}")
+
+
+def phase_profile(state) -> None:
+    """Phase 5: where one frame's time goes. A warm `render_frame` of the
+    phase-3 view under torch.profiler: device time by kernel and the
+    device's busy share of the frame's wall time."""
+    import torch
+
+    def frame():
+        return state.render_frame(0.0, 0.0, 0.0, SIZE, False,
+                                  pose=view_pose(), fovx=0.8, fovy=0.8)
+
+    frame()
+    torch.cuda.synchronize()
+    profile_once(frame, "one warm frame (render + PNG)")
 
     # the same frame split on the host clock, profiler off: the render to
     # a host image, then the PNG encode (median of 5 each)
@@ -418,6 +460,241 @@ def phase_profile(state) -> None:
     print("frame split on the host clock: " + ", ".join(
         f"{k} {statistics.median(v):.2f} ms" for k, v in split.items()),
         flush=True)
+
+
+def phase_backward(view) -> list:
+    """Phase 6: kernels B3 and B4 against their plain versions on phase
+    3's color view, with a seeded cotangent; returns their JSON rows."""
+    import torch
+
+    from gaussianeditor_tpu_torch.ops.binning_sorted import (
+        rank_segment_sum,
+        rank_segment_sum_plain,
+    )
+    from gaussianeditor_tpu_torch.ops.tile_composite import (
+        backward_tiles,
+        backward_tiles_plain,
+    )
+
+    proc, sb, tiles, gx = view["proc"], view["sb"], view["tiles"], view["gx"]
+    T = gx * gx
+    C = proc.tiles_touched.shape[0]
+    n = sb.payload.shape[1]
+    G = sb.payload.shape[0]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    g_color = torch.randn((T, 256, 3), generator=gen, device="cuda")
+    g_depth = 0.1 * torch.randn((T, 256), generator=gen, device="cuda")
+    g_T = 0.05 * torch.randn((T, 256), generator=gen, device="cuda")
+    args = (sb.tile_bounds, sb.payload, sb.rank, tiles, g_color, g_depth,
+            g_T, gx, 3)
+    b_incl, tt = sb.b_incl, proc.tiles_touched
+
+    # --- B3 ---
+    rows = backward_tiles(*args)
+    rows_plain = backward_tiles_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.isfinite(rows).all(), "B3: rows not finite"
+    err = (rows - rows_plain).abs()
+    ok = err <= 1e-3 + 1e-2 * rows_plain.abs()
+    b3_err = float(err.max())
+    print(f"B3 backward_tile: {n} rows x {G} fields; max abs err vs plain "
+          f"{b3_err:.3g}, {float(ok.float().mean()):.7f} of entries within "
+          f"atol 1e-3 / rtol 1e-2; rows max |.| "
+          f"{float(rows_plain.abs().max()):.4g}", flush=True)
+    assert bool(ok.all()), "B3: rows differ from plain beyond atol/rtol"
+
+    # --- B4 ---
+    d = rank_segment_sum(rows, b_incl, tt, C)
+    d_plain = rank_segment_sum_plain(rows, b_incl, tt, C)
+    torch.cuda.synchronize()
+    rms = d_plain.pow(2).mean(dim=0).sqrt()
+    b4_err = float((d - d_plain).abs().max())
+    rel = float(((d - d_plain).abs() / rms).max())
+    print(f"B4 rank_segment_sum: {C} slots x {G} fields; max abs err vs "
+          f"plain {b4_err:.3g}, max {rel:.3g} of the column RMS", flush=True)
+    assert rel <= 1e-5, f"B4: {rel} of the column RMS"
+    assert not d[tt == 0].any(), "B4: a slot without ranks got a sum"
+
+    # --- B3 then B4, again: bitwise ---
+    rows2 = backward_tiles(*args)
+    d2 = rank_segment_sum(rows2, b_incl, tt, C)
+    torch.cuda.synchronize()
+    assert torch.equal(rows, rows2), "B3 is not bitwise repeatable"
+    assert torch.equal(d, d2), "B4 is not bitwise repeatable"
+    print("B3 then B4 run twice: bitwise equal", flush=True)
+
+    # --- times and bounds ---
+    b3_ms = time_ms(lambda: backward_tiles(*args))
+    b3_plain_ms = time_ms(lambda: backward_tiles_plain(*args), runs=3)
+    b4_ms = time_ms(lambda: rank_segment_sum(rows, b_incl, tt, C))
+    b4_plain_ms = time_ms(lambda: rank_segment_sum_plain(rows, b_incl, tt, C),
+                          runs=3)
+    # the library's segmented sum over rank-major rows, segments cut at n
+    lengths = (torch.clamp(b_incl.long(), max=n)
+               - torch.clamp(b_incl.long() - tt.long(), max=n))
+    rows_t = rows.T.contiguous()
+    lib = torch.segment_reduce(rows_t, "sum", lengths=lengths, axis=0)
+    lib_err = float((lib - d_plain).abs().max())
+    lib_ms = time_ms(lambda: torch.segment_reduce(rows_t, "sum",
+                                                  lengths=lengths, axis=0))
+    sum_nc = int(tiles.n_contrib.long().sum())
+    contrib = view["contrib"]
+    b3_ops = B3_OPS_EVALUATED * sum_nc + B3_OPS_CONTRIB * contrib
+    # payload and rank read, 11 per-pixel values read, rows written
+    b3_bytes = 4 * G * n + 8 * n + 4 * 11 * T * 256 + 4 * G * n
+    b3_bound_ops = 1e3 * b3_ops / H100_FP32_PER_S
+    b3_bound_bytes = 1e3 * b3_bytes / H100_BYTES_PER_S
+    b3_bound = max(b3_bound_ops, b3_bound_bytes)
+    b3_by = "operations" if b3_bound_ops >= b3_bound_bytes else "bytes"
+    b4_bytes = 4 * G * n + 8 * C + 4 * G * C
+    b4_bound = 1e3 * b4_bytes / H100_BYTES_PER_S
+    print(f"B3 backward_tile: rows before n_contrib {sum_nc}, contributing "
+          f"pairs {contrib}; kernel {b3_ms:.4f} ms, plain {b3_plain_ms:.4f} "
+          f"ms, bound {b3_bound:.4f} ms ({b3_by}; ops {b3_bound_ops:.4f}, "
+          f"bytes {b3_bound_bytes:.4f})", flush=True)
+    print(f"B4 rank_segment_sum: kernel {b4_ms:.4f} ms, plain "
+          f"{b4_plain_ms:.4f} ms, torch.segment_reduce {lib_ms:.4f} ms (max "
+          f"abs err vs plain {lib_err:.3g}), bound {b4_bound:.4f} ms (bytes, "
+          f"{b4_bytes} B)", flush=True)
+    return [
+        dict(name="B3 backward_tile", route="cuda",
+             source="gaussianeditor_tpu_torch/csrc/backward_tile.cu",
+             replaces="gaussianeditor_tpu/ops/pallas_composite.py:873",
+             max_abs_err=b3_err, ms=b3_ms, plain_ms=b3_plain_ms,
+             bound_ms=b3_bound, bound_by=b3_by, library_ms=None),
+        dict(name="B4 rank_segment_sum", route="cuda",
+             source="gaussianeditor_tpu_torch/csrc/rank_segment_sum.cu",
+             replaces="gaussianeditor_tpu/ops/binning_sorted.py:205",
+             max_abs_err=b4_err, ms=b4_ms, plain_ms=b4_plain_ms,
+             bound_ms=b4_bound, bound_by="bytes", library_ms=lib_ms),
+    ]
+
+
+def phase_train(scene, cameras_extent: float) -> dict:
+    """Phase 7: the edit train step at full width; returns the launch
+    counts of its 12 steps and densify step."""
+    import torch
+
+    from gaussianeditor_tpu_torch.core.cameras import orbit_cameras
+    from gaussianeditor_tpu_torch.ops import _kernels
+    from gaussianeditor_tpu_torch.ops.render import render
+    from gaussianeditor_tpu_torch.train.densify import DensifyConfig
+    from gaussianeditor_tpu_torch.train.optim import GaussianAdam, OptimConfig
+    from gaussianeditor_tpu_torch.train.perceptual import (
+        multiscale_gradient_loss,
+    )
+    from gaussianeditor_tpu_torch.train.trainer import (
+        LossWeights,
+        init_train_state,
+        make_densify_step,
+        make_train_step,
+    )
+
+    cams = orbit_cameras(2, 4.0, 0.8, 0.8, SIZE, SIZE, device="cuda")
+    shift = torch.tensor(COLOR_SHIFT, device="cuda")
+    with torch.no_grad():
+        targets = torch.stack([
+            torch.clamp(render(scene, c, torch.zeros(3, device="cuda")).color
+                        * shift, 0.0, 1.0) for c in cams])
+    base = OptimConfig()
+    sc = LR_SCALERS
+    optim = GaussianAdam(OptimConfig(
+        position_lr_init=base.position_lr_init * sc["gs_lr_scaler"],
+        position_lr_final=base.position_lr_final * sc["gs_final_lr_scaler"],
+        position_lr_max_steps=EDIT_MAX_STEPS,
+        feature_lr=base.feature_lr * sc["color_lr_scaler"],
+        opacity_lr=base.opacity_lr * sc["opacity_lr_scaler"],
+        scaling_lr=base.scaling_lr * sc["scaling_lr_scaler"],
+        rotation_lr=base.rotation_lr * sc["rotation_lr_scaler"],
+        spatial_lr_scale=cameras_extent))
+    step = make_train_step(optim, LossWeights(),
+                           perceptual=multiscale_gradient_loss)
+    state = init_train_state(scene, optim)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    def run(k):
+        nonlocal state
+        out = []
+        for _ in range(k):
+            t0 = time.perf_counter()
+            state, m = step(state, cams, targets)
+            torch.cuda.synchronize()
+            out.append((1e3 * (time.perf_counter() - t0), m))
+        return out
+
+    _kernels.reset_launch_counts()
+    hist = run(TRAIN_STEPS[0])
+    st = state.stats
+    seen = st.denom > 0
+    thres = float(torch.quantile(st.xyz_gradient_accum[seen] / st.denom[seen],
+                                 0.999))
+    densify = make_densify_step(
+        optim, DensifyConfig(max_grad=thres, max_densify_percent=0.01,
+                             min_opacity=0.005, max_screen_size=5.0,
+                             percent_dense=optim.config.percent_dense),
+        cameras_extent, 0.1, 1.3)
+    n_alive0 = int(scene.n_alive)
+    t0 = time.perf_counter()
+    state, info = densify(state, generator=torch.Generator(
+        device="cuda").manual_seed(SEED))
+    torch.cuda.synchronize()
+    densify_ms = 1e3 * (time.perf_counter() - t0)
+    hist += run(TRAIN_STEPS[1])
+    counts = _kernels.launch_counts()
+    info = {k: int(v) for k, v in info.items()}
+    print(f"train: {len(hist)} steps at batch 2, {SIZE}x{SIZE}, "
+          f"{scene.capacity} slots; densify at step {TRAIN_STEPS[0]} "
+          f"(threshold {thres:.4g}, the 99.9th percentile over "
+          f"{int(seen.sum())} seen Gaussians): {info}, alive {n_alive0} -> "
+          f"{int(scene.n_alive)}, {densify_ms:.1f} ms", flush=True)
+    print(f"launches over the 12 steps and the densify step: {counts}",
+          flush=True)
+    for k in ("binning_key", "forward_tile", "backward_tile",
+              "rank_segment_sum"):
+        assert counts[k] == 2 * len(hist), f"{k} launched {counts[k]} times"
+    l1 = [float(m["loss_l1"]) for _, m in hist]
+    print("loss_l1 by step: " + ", ".join(f"{v:.6f}" for v in l1), flush=True)
+    last = hist[-1][1]
+    print("last step: " + ", ".join(f"{k} {float(v):.6g}"
+                                    for k, v in last.items()), flush=True)
+    assert l1[-1] < l1[0], "loss_l1 did not fall"
+    assert not any(bool(m["overflow"]) for _, m in hist), "overflow"
+    for _, m in hist:
+        assert all(bool(torch.isfinite(v).all()) for k, v in m.items()
+                   if k != "overflow"), "a loss term is not finite"
+    for k, v in scene.params().items():
+        assert torch.isfinite(v).all(), f"{k} not finite"
+        assert torch.isfinite(state.opt_state.mu[k]).all(), f"mu {k}"
+        assert torch.isfinite(state.opt_state.nu[k]).all(), f"nu {k}"
+    for f in ("xyz_gradient_accum", "denom", "max_radii2d"):
+        assert torch.isfinite(getattr(state.stats, f)).all(), f
+    assert info["n_cloned"] + info["n_split"] > 0, "densify did nothing"
+    ms = [t for t, _ in hist]
+    print(f"ms per step (host clock, synchronized): median "
+          f"{statistics.median(ms):.2f}, first {ms[0]:.2f}, min {min(ms):.2f},"
+          f" max {max(ms):.2f}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+
+    # one step twice from a copied state: bitwise
+    copy = state.clone()
+    g1, g2 = {}, {}
+    s1, m1 = step(state, cams, targets, grads=g1)
+    s2, m2 = step(copy, cams, targets, grads=g2)
+    torch.cuda.synchronize()
+    assert torch.equal(m1["loss"], m2["loss"]), "loss differs"
+    for k in g1:
+        assert torch.isfinite(g1[k]).all(), f"gradient of {k} not finite"
+        assert torch.equal(g1[k], g2[k]), f"gradient of {k} differs"
+        assert torch.equal(getattr(s1.scene, k), getattr(s2.scene, k)), k
+        assert torch.equal(s1.opt_state.nu[k], s2.opt_state.nu[k]), k
+    print("one step twice from a copied state: gradients (finite on every "
+          "slot), parameters and moments bitwise equal", flush=True)
+    del copy, s2, g1, g2
+
+    profile_once(lambda: step(state, cams, targets), "one train step",
+                 top=15)
+    return counts
 
 
 def main() -> int:
@@ -467,17 +744,32 @@ def main() -> int:
               f"set-up {time.perf_counter() - t0:.1f} s", flush=True)
 
         # 3. kernel vs plain at full width
-        cam, plain_img, kernels = phase_kernels(state.scene, "cuda")
+        cam, plain_img, view, kernels = phase_kernels(state.scene, "cuda")
 
         # 4. the main path through the viewer
-        counts = phase_serve(state, cam, plain_img)
+        serve_counts = phase_serve(state, cam, plain_img)
 
         # 5. where one frame's time goes
         phase_profile(state)
 
-    names = {"B1 binning_key": "binning_key", "B2 forward_tile": "forward_tile"}
+        # 6. the backward kernels vs plain at full width
+        kernels += phase_backward(view)
+        del view
+
+        # 7. the train path
+        train_counts = phase_train(state.scene, state.cameras_extent)
+
+    # launches on each kernel's own path: B1 and B2 serve frames (phase
+    # 4), B3 and B4 train (phase 7); both paths' counts are listed
+    names = {"B1 binning_key": ("binning_key", serve_counts),
+             "B2 forward_tile": ("forward_tile", serve_counts),
+             "B3 backward_tile": ("backward_tile", train_counts),
+             "B4 rank_segment_sum": ("rank_segment_sum", train_counts)}
     for k in kernels:
-        k["launches"] = counts[names[k["name"]]]
+        key, counts = names[k["name"]]
+        k["launches"] = counts[key]
+        k["launches_by_path"] = {"serve": serve_counts[key],
+                                 "train": train_counts[key]}
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

@@ -5,13 +5,18 @@ Counterpart of `gaussianeditor_tpu/models/gaussians.py` (`GaussianScene`,
 `nn.Parameter`s; the bookkeeping state (`alive`, `mask`, `generation`,
 the anchor snapshot, `anchor_weights`, `n_generations`,
 `active_sh_degree`) lives in buffers. Capacity is fixed and `alive`
-marks the occupied slots, as in the JAX package, so densification in a
-later slice writes into dead slots instead of resizing tensors. Dead
-slots carry zeros in every parameter.
+marks the occupied slots, as in the JAX package, so densification
+(`train/densify.py`) writes into dead slots instead of resizing tensors.
+Dead slots carry zeros in every parameter.
+
+Where the JAX scene returns a new pytree (`update_anchor`, `set_mask`,
+`one_up_sh_degree`), the port updates its buffers in place and returns
+the scene; `localized` returns a view that shares the parameters.
 """
 
 from __future__ import annotations
 
+import copy
 from typing import Dict, Optional
 
 import numpy as np
@@ -109,6 +114,36 @@ class GaussianScene(nn.Module):
 
     def anchor(self) -> Dict[str, torch.Tensor]:
         return {name: getattr(self, "anchor_" + name) for name in PARAM_NAMES}
+
+    # ---- state updates (the JAX scene's `replace` methods) ----
+
+    @torch.no_grad()
+    def one_up_sh_degree(self) -> "GaussianScene":
+        """Raise the active SH degree by one, up to `max_sh_degree`."""
+        self.active_sh_degree.copy_(torch.clamp(self.active_sh_degree + 1,
+                                                max=self.max_sh_degree))
+        return self
+
+    @torch.no_grad()
+    def update_anchor(self) -> "GaussianScene":
+        """Snapshot the current parameters as the anchor."""
+        for name in PARAM_NAMES:
+            getattr(self, "anchor_" + name).copy_(getattr(self, name))
+        return self
+
+    @torch.no_grad()
+    def set_mask(self, mask: torch.Tensor) -> "GaussianScene":
+        self.mask.copy_(mask.to(torch.bool))
+        return self
+
+    def localized(self) -> "GaussianScene":
+        """The scene restricted to the semantic mask (`alive & mask`): a
+        shallow view that shares the parameters, so gradients taken
+        through it reach this scene's parameters."""
+        view = copy.copy(self)
+        view._buffers = dict(self._buffers)
+        view._buffers["alive"] = self.alive & self.mask
+        return view
 
     # ---- construction ----
 

@@ -22,6 +22,15 @@ Differences from the JAX route, none of which changes an output:
 The depth key keeps the JAX cut: min(32 - tile_bits, 24) bits of the f32
 depth's bit pattern (visible depths are > 0.2, so the pattern is that of
 a non-negative int).
+
+`rank_segment_sum` is the backward's per-Gaussian reduction. Kernel B3
+writes each sorted row's gradient straight to its pre-sort rank (`rank`
+is a permutation), so Gaussian g's rows sit at the contiguous ranks
+[b_incl[g] - tiles_touched[g], b_incl[g]); kernel B4
+(`csrc/rank_segment_sum.cu`) sums each segment in rank order, in
+double, rounded once. It takes the place of the JAX route's rank-keyed
+stable sort, its Pallas `_make_assembly_kernel` restack and
+`rank_space_reduce_blocked`'s mean-centred prefix differences.
 """
 
 from __future__ import annotations
@@ -160,3 +169,44 @@ def sorted_bin(proc: ProcessedGaussians, grid_x: int, grid_y: int,
         num_rendered=torch.tensor(total, dtype=torch.int32, device=dev),
         overflow=torch.tensor(total > R, device=dev),
     )
+
+
+def rank_segment_sum_plain(rows_rank: torch.Tensor, b_incl: torch.Tensor,
+                           tiles_touched: torch.Tensor, C: int) -> torch.Tensor:
+    """Plain torch version of kernel B4: [C, GF], row g the sum of
+    `rows_rank[:, r]` over g's ranks [b_incl[g] - tiles_touched[g],
+    b_incl[g]) within [0, n), taken in float64 and rounded to float32 (a
+    deterministic sum on the CPU)."""
+    GF, n = rows_rank.shape
+    dev = rows_rank.device
+    out = torch.zeros((C, GF), dtype=torch.float64, device=dev)
+    if n == 0 or C == 0:
+        return out.to(torch.float32)
+    # rank q belongs to the first Gaussian whose inclusive bound passes
+    # it; ranks past the last bound (q >= num_rendered) to none
+    q = torch.arange(n, dtype=b_incl.dtype, device=dev)
+    g = torch.searchsorted(b_incl, q, right=True)
+    live = g < C
+    out.index_add_(0, g[live], rows_rank.to(torch.float64).T[live])
+    return out.to(torch.float32)
+
+
+def rank_segment_sum(rows_rank: torch.Tensor, b_incl: torch.Tensor,
+                     tiles_touched: torch.Tensor, C: int) -> torch.Tensor:
+    """Kernel B4 on CUDA tensors, its plain version on CPU tensors."""
+    dev = rows_rank.device
+    if dev.type == "cpu":
+        return rank_segment_sum_plain(rows_rank, b_incl, tiles_touched, C)
+    if dev.type != "cuda":
+        raise ValueError(f"rank_segment_sum: unsupported device {dev}")
+    GF, n = rows_rank.shape
+    chk = _kernels.check_cuda_tensor
+    rows_rank = chk(rows_rank, "rows_rank", torch.float32, dev, (GF, n))
+    b_incl = chk(b_incl, "b_incl", torch.int32, dev, (C,))
+    tiles_touched = chk(tiles_touched, "tiles_touched", torch.int32, dev, (C,))
+    out = torch.empty((C, GF), dtype=torch.float32, device=dev)
+    if C == 0:
+        return out
+    _kernels.launch("rank_segment_sum", dev, rows_rank, b_incl, tiles_touched,
+                    GF, n, C, out)
+    return out

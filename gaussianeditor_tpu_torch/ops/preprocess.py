@@ -13,6 +13,16 @@ can never reach 1/255 ("dead opacity"), and `active_sh_degree` gating.
 
 Float-to-int casts follow XLA's rules (NaN -> 0, saturating), which the
 JAX package's rect arithmetic relies on for culled Gaussians.
+
+Autograd differentiates this stage as it stands. What the JAX package
+wraps in `stop_gradient` is detached here: the isotropic radius, the
+per-axis rect radii, the dead-opacity flag and the mean2d the rect is
+cut from. Without that, `ceil(sqrt(2 ln(256 op) c_xx))` at
+`ln(256 op) <= 0` (every dead slot, every Gaussian with op <= 1/256)
+multiplies an infinite local derivative by `ceil`'s zero and gives NaN
+gradients on the conic and the opacity. `mean2d_offset_ndc` is the
+densification probe: an all-zero [C, 2] added in NDC before `ndc2pix`,
+whose gradient is the viewspace gradient the densify statistics read.
 """
 
 from __future__ import annotations
@@ -115,11 +125,13 @@ def preprocess(
     max_sh_degree: int = 3,
     scale_modifier: float = 1.0,
     override_color: Optional[torch.Tensor] = None,
+    mean2d_offset_ndc: Optional[torch.Tensor] = None,
 ) -> ProcessedGaussians:
     """Project all C Gaussians into `camera` (on the Gaussians' device).
 
     Culled and dead Gaussians stay in place with `visible=False`,
-    `radius=0` and `tiles_touched=0`."""
+    `radius=0` and `tiles_touched=0`. `mean2d_offset_ndc` [C, 2] is added
+    to the NDC projection (the densification probe)."""
     W, H = camera.width, camera.height
     x, y, z = xyz[:, 0], xyz[:, 1], xyz[:, 2]
 
@@ -133,8 +145,13 @@ def preprocess(
     tz = WV[2, 0] * x + WV[2, 1] * y + WV[2, 2] * z + WV[2, 3]
     in_frustum = tz > 0.2
 
-    mx = ndc2pix(hx * p_w, W)
-    my = ndc2pix(hy * p_w, H)
+    ndc_x = hx * p_w
+    ndc_y = hy * p_w
+    if mean2d_offset_ndc is not None:
+        ndc_x = ndc_x + mean2d_offset_ndc[:, 0]
+        ndc_y = ndc_y + mean2d_offset_ndc[:, 1]
+    mx = ndc2pix(ndc_x, W)
+    my = ndc2pix(ndc_y, H)
 
     # covariance Sigma = L L^T, L = R diag(s)
     sc = torch.exp(log_scales) * scale_modifier
@@ -200,8 +217,12 @@ def preprocess(
     conic_b = -c_xy * det_inv
     conic_c = c_xx * det_inv
 
-    mid = 0.5 * (c_xx + c_yy)
-    disc = torch.sqrt(torch.clamp_min(mid * mid - det, 0.1))
+    # the radius, the rect and the dead-opacity flag carry no gradient
+    # (stop_gradient in the JAX package): they are computed from
+    # detached values
+    cxx_s, cyy_s, det_s = c_xx.detach(), c_yy.detach(), det.detach()
+    mid = 0.5 * (cxx_s + cyy_s)
+    disc = torch.sqrt(torch.clamp_min(mid * mid - det_s, 0.1))
     lambda1 = mid + disc
     radius_f = torch.ceil(3.0 * torch.sqrt(torch.maximum(lambda1, mid - disc)))
 
@@ -209,23 +230,24 @@ def preprocess(
     # sqrt(2 ln(256 op) Sigma_axis) has alpha <= 1/256 and is dropped by
     # the compositor anyway; capped at the isotropic radius. A Gaussian
     # with op <= 1/256 gets an empty rect ("dead opacity").
-    ln_op = torch.log(256.0 * torch.clamp_min(opacity, 1e-12))
+    ln_op = torch.log(256.0 * torch.clamp_min(opacity.detach(), 1e-12))
     two_ln = 2.0 * torch.clamp_min(ln_op, 0.0)
-    rx_f = torch.minimum(radius_f, torch.ceil(torch.sqrt(two_ln * c_xx)))
-    ry_f = torch.minimum(radius_f, torch.ceil(torch.sqrt(two_ln * c_yy)))
+    rx_f = torch.minimum(radius_f, torch.ceil(torch.sqrt(two_ln * cxx_s)))
+    ry_f = torch.minimum(radius_f, torch.ceil(torch.sqrt(two_ln * cyy_s)))
     dead_op = ln_op <= 0.0
 
     # tile rect, grid in tiles
     grid_x = (W + TILE - 1) // TILE
     grid_y = (H + TILE - 1) // TILE
-    rminx = _clip_int((mx - rx_f) / TILE, grid_x)
-    rminy = _clip_int((my - ry_f) / TILE, grid_y)
+    mxs, mys = mx.detach(), my.detach()
+    rminx = _clip_int((mxs - rx_f) / TILE, grid_x)
+    rminy = _clip_int((mys - ry_f) / TILE, grid_y)
     # upper bound: the tightened radius needs +TILE to keep every pixel
     # within rx, capped at the CUDA bound floor((p + r + TILE-1)/TILE)
-    rmaxx = _clip_int(torch.minimum((mx + radius_f + TILE - 1) / TILE,
-                                    (mx + rx_f + TILE) / TILE), grid_x)
-    rmaxy = _clip_int(torch.minimum((my + radius_f + TILE - 1) / TILE,
-                                    (my + ry_f + TILE) / TILE), grid_y)
+    rmaxx = _clip_int(torch.minimum((mxs + radius_f + TILE - 1) / TILE,
+                                    (mxs + rx_f + TILE) / TILE), grid_x)
+    rmaxy = _clip_int(torch.minimum((mys + radius_f + TILE - 1) / TILE,
+                                    (mys + ry_f + TILE) / TILE), grid_y)
     tiles = torch.where(dead_op, 0, (rmaxx - rminx) * (rmaxy - rminy))
 
     visible = in_frustum & det_valid & (tiles > 0)
@@ -247,7 +269,8 @@ def preprocess(
         dx, dy, dz = dx * dn, dy * dn, dz * dn
         shT = sh.permute(1, 2, 0)  # [K, ch, C]
         res = _eval_sh_soa(max_sh_degree, shT, dx, dy, dz, active_sh_degree)
-        color = torch.clamp_min(res + 0.5, 0.0).T.contiguous()  # [C, ch]
+        # maximum, not clamp_min: a tie splits its gradient as jnp.maximum
+        color = torch.maximum(res + 0.5, res.new_zeros(())).T.contiguous()
 
     return ProcessedGaussians(
         mean2d=torch.stack([mx, my], dim=-1),

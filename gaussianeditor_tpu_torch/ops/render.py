@@ -15,10 +15,13 @@ on CPU tensors through their plain versions. On CUDA the compositor
 takes 1 channel (the viewer's mask overlay) or 3 (RGB); other widths
 wait for the 'pallas4' kernels.
 
-Forward only: the backward kernels come with the training slice, so a
-render that autograd would have to differentiate raises
-NotImplementedError instead of returning zero gradients. Call it under
-`torch.no_grad()` or on parameters that do not require grad.
+Differentiable: under autograd the preprocess is differentiated as
+plain torch and the compositor through `TileComposite` (kernels B3 and
+B4 on CUDA, their plain versions on the CPU; on CUDA the backward takes
+3 channels). The binning is built under `no_grad`. `mean2d_offset_ndc`,
+an all-zero [C, 2] tensor that requires grad, is the densification
+probe: its gradient is the viewspace gradient of the reference's
+`screenspace_points`.
 """
 
 from __future__ import annotations
@@ -32,7 +35,7 @@ from gaussianeditor_tpu_torch.core.cameras import Camera
 from gaussianeditor_tpu_torch.ops.binning_sorted import sorted_bin
 from gaussianeditor_tpu_torch.ops.composite import tiles_to_image
 from gaussianeditor_tpu_torch.ops.preprocess import TILE, preprocess
-from gaussianeditor_tpu_torch.ops.tile_composite import forward_tiles
+from gaussianeditor_tpu_torch.ops.tile_composite import TileComposite
 
 
 class RenderOutput(NamedTuple):
@@ -55,7 +58,8 @@ def default_max_instances(capacity: int) -> int:
 
 
 def preprocess_scene(scene, camera: Camera, *, scale_modifier: float = 1.0,
-                     override_color: Optional[torch.Tensor] = None):
+                     override_color: Optional[torch.Tensor] = None,
+                     mean2d_offset_ndc: Optional[torch.Tensor] = None):
     """`preprocess` of every slot of `scene` (dead slots stay invisible)."""
     sh = None if override_color is not None else scene.get_features
     return preprocess(
@@ -70,6 +74,7 @@ def preprocess_scene(scene, camera: Camera, *, scale_modifier: float = 1.0,
         max_sh_degree=scene.max_sh_degree,
         scale_modifier=scale_modifier,
         override_color=override_color,
+        mean2d_offset_ndc=mean2d_offset_ndc,
     )
 
 
@@ -80,21 +85,13 @@ def render(
     *,
     scale_modifier: float = 1.0,
     override_color: Optional[torch.Tensor] = None,
+    mean2d_offset_ndc: Optional[torch.Tensor] = None,
     max_instances: Optional[int] = None,
 ) -> RenderOutput:
     """Render `scene` through `camera` on the scene's device.
 
     max_instances: total tile-instance budget; exceeding it sets
     `overflow` (see `render_safe`)."""
-    inputs = [scene.xyz, scene.log_scales, scene.quats, scene.opacity_raw,
-              scene.features_dc, scene.features_rest]
-    if override_color is not None:
-        inputs.append(override_color)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
-        raise NotImplementedError(
-            "render has no backward yet (it comes with the training "
-            "slice); call it under torch.no_grad()")
-
     dev = scene.device
     camera = camera.to(dev)
     H, W = camera.height, camera.width
@@ -105,20 +102,23 @@ def render(
     bg = bg.to(dev)
 
     proc = preprocess_scene(scene, camera, scale_modifier=scale_modifier,
-                            override_color=override_color)
+                            override_color=override_color,
+                            mean2d_offset_ndc=mean2d_offset_ndc)
 
     grid_x = (W + TILE - 1) // TILE
     grid_y = (H + TILE - 1) // TILE
     if max_instances is None:
         max_instances = default_max_instances(scene.capacity)
-    ch = proc.color.shape[-1]
-    sb = sorted_bin(proc, grid_x, grid_y, max_instances)
-    tiles = forward_tiles(sb, grid_x, ch)
+    with torch.no_grad():
+        sb = sorted_bin(proc, grid_x, grid_y, max_instances)
+    t_color, t_depth, t_final_T, t_nc = TileComposite.apply(
+        proc.mean2d, proc.conic, proc.opacity, proc.color, proc.depth, sb,
+        proc.tiles_touched, grid_x)
 
-    color = tiles_to_image(tiles.color, grid_x, grid_y, H, W)
-    depth = tiles_to_image(tiles.depth, grid_x, grid_y, H, W)
-    final_T = tiles_to_image(tiles.final_T, grid_x, grid_y, H, W)
-    n_contrib = tiles_to_image(tiles.n_contrib, grid_x, grid_y, H, W)
+    color = tiles_to_image(t_color, grid_x, grid_y, H, W)
+    depth = tiles_to_image(t_depth, grid_x, grid_y, H, W)
+    final_T = tiles_to_image(t_final_T, grid_x, grid_y, H, W)
+    n_contrib = tiles_to_image(t_nc, grid_x, grid_y, H, W)
     color = color + final_T[..., None] * bg[None, None, :]
 
     return RenderOutput(

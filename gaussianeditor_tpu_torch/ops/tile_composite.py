@@ -1,14 +1,17 @@
-"""Forward tile compositor over the sorted binning.
+"""Tile compositor over the sorted binning, forward and backward.
 
-Counterpart of the forward of
-`gaussianeditor_tpu/ops/pallas_composite.py::make_pallas_compositor_sorted`
-(`run_forward`) and of its Pallas kernel `make_forward_tile`, which
-kernel B2 (`csrc/forward_tile.cu`) replaces. One 16x16 tile per block,
-one pixel per thread, front to back over the tile's depth-sorted rows;
-an empty tile gives color and depth 0, final_T 1 and n_contrib 0.
-
-Forward only: the backward (kernels B3 and B4) comes with the training
-slice, so `ops/render.py` refuses to run under autograd.
+Counterpart of `gaussianeditor_tpu/ops/pallas_composite.py::
+make_pallas_compositor_sorted` and its custom VJP. The forward is kernel
+B2 (`csrc/forward_tile.cu`, replacing the Pallas `make_forward_tile`):
+one 16x16 tile per block, one pixel per thread, front to back over the
+tile's depth-sorted rows; an empty tile gives color and depth 0, final_T
+1 and n_contrib 0. The backward is kernel B3 (`csrc/backward_tile.cu`,
+replacing `make_backward_tile`), which writes one gradient row per
+sorted row to that row's pre-sort rank, followed by kernel B4
+(`ops/binning_sorted.py::rank_segment_sum`), which sums each Gaussian's
+ranks. `TileComposite` wires them into autograd; the payload is built
+under `no_grad` and never enters the graph, so the gradients reach the
+five per-Gaussian inputs only through B3 and B4, in a fixed order.
 """
 
 from __future__ import annotations
@@ -18,7 +21,10 @@ from typing import Tuple
 import torch
 
 from gaussianeditor_tpu_torch.ops import _kernels
-from gaussianeditor_tpu_torch.ops.binning_sorted import SortedBinning
+from gaussianeditor_tpu_torch.ops.binning_sorted import (
+    SortedBinning,
+    rank_segment_sum,
+)
 from gaussianeditor_tpu_torch.ops.composite import (
     ALPHA_MAX,
     ALPHA_MIN,
@@ -29,6 +35,7 @@ from gaussianeditor_tpu_torch.ops.preprocess import TILE
 
 PX = TILE * TILE
 KERNEL_CHANNELS = (1, 3)  # forward_tile.cu's instances: the mask and RGB
+BACKWARD_CHANNELS = (3,)  # backward_tile.cu's: the train step renders RGB
 
 
 def _pixel_coords(num_tiles: int, grid_x: int, device):
@@ -114,3 +121,141 @@ def forward_tiles(sb: SortedBinning, grid_x: int, ch: int) -> TileImages:
                     color, depth, final_T, n_contrib)
     return TileImages(color=color, depth=depth, final_T=final_T,
                       n_contrib=n_contrib)
+
+
+def backward_tiles_plain(tile_bounds: torch.Tensor, payload: torch.Tensor,
+                         rank: torch.Tensor, tiles: TileImages,
+                         g_color: torch.Tensor, g_depth: torch.Tensor,
+                         g_T: torch.Tensor, grid_x: int, ch: int
+                         ) -> torch.Tensor:
+    """Plain torch version of kernel B3: the gradient rows [7 + ch, n]
+    (d mean2d x y, d conic a b c, d opacity, d color, d depth) of every
+    sorted row, written to its pre-sort rank. The same per-pixel
+    recurrence as the kernel, one sorted row position at a time for all
+    tiles at once; rows past a tile's largest n_contrib stay zero."""
+    dev = payload.device
+    T = tile_bounds.shape[0] - 1
+    n = payload.shape[1]
+    G = 7 + ch
+    rows = torch.zeros((G, n), dtype=torch.float32, device=dev)
+    if n == 0 or T == 0:
+        return rows
+    start = tile_bounds[:-1].to(torch.int64)
+    cnt = (tile_bounds[1:] - tile_bounds[:-1]).to(torch.int64)
+    px, py = _pixel_coords(T, grid_x, dev)
+    nc = tiles.n_contrib.to(torch.int64)
+    S = g_T * tiles.final_T
+    for c in range(ch):
+        S = S + g_color[..., c] * tiles.color[..., c]
+    S = S + g_depth * tiles.depth
+
+    trans = torch.ones((T, PX), dtype=torch.float32, device=dev)
+    prefix = torch.zeros((T, PX), dtype=torch.float32, device=dev)
+    limit = torch.minimum(cnt, nc.max(dim=1).values)
+    for i in range(int(limit.max())):
+        r = payload[:, torch.clamp(start + i, max=n - 1)]   # [P, T]
+        xs, ys, ca, cb, cc, op, dep = (r[k][:, None] for k in range(7))
+        feat = r[7:7 + ch].T[:, None, :]                      # [T, 1, ch]
+        dx = xs - px
+        dy = ys - py
+        power = -0.5 * (ca * dx * dx + cc * dy * dy) - cb * dx * dy
+        alpha_raw = op * torch.exp(power)
+        alpha = torch.clamp_max(alpha_raw, ALPHA_MAX)
+        on = ((cnt > i)[:, None] & (i < nc) & ~(power > 0.0)
+              & ~(alpha < ALPHA_MIN))
+        w = torch.where(on, alpha * trans, 0.0)
+        c_hat = g_depth * dep
+        for c in range(ch):
+            c_hat = c_hat + g_color[..., c] * feat[..., c]
+        prefix = prefix + w * c_hat
+        f = 1.0 - alpha
+        amc = torch.where(alpha_raw < ALPHA_MAX, alpha, 0.0)
+        dpower = torch.where(on, amc * (trans * c_hat - (S - prefix) / f), 0.0)
+        part = torch.stack(
+            [-dpower * (ca * dx + cb * dy), -dpower * (cc * dy + cb * dx),
+             -0.5 * dpower * dx * dx, -dpower * dx * dy,
+             -0.5 * dpower * dy * dy, dpower]
+            + [g_color[..., c] * w for c in range(ch)] + [g_depth * w],
+            dim=-1)                                           # [T, PX, G]
+        sums = part.sum(dim=1)                                # [T, G]
+        sums[:, 5] = sums[:, 5] * torch.where(op[:, 0] > 0.0, 1.0 / op[:, 0],
+                                              0.0)
+        trans = torch.where(on, trans * (1.0 - alpha), trans)
+        sel = cnt > i
+        rows[:, rank[start[sel] + i]] = sums[sel].T
+    return rows
+
+
+def backward_tiles(tile_bounds: torch.Tensor, payload: torch.Tensor,
+                   rank: torch.Tensor, tiles: TileImages,
+                   g_color: torch.Tensor, g_depth: torch.Tensor,
+                   g_T: torch.Tensor, grid_x: int, ch: int) -> torch.Tensor:
+    """Kernel B3 on CUDA tensors, its plain version on CPU tensors."""
+    dev = payload.device
+    if dev.type == "cpu":
+        return backward_tiles_plain(tile_bounds, payload, rank, tiles,
+                                    g_color, g_depth, g_T, grid_x, ch)
+    if dev.type != "cuda":
+        raise ValueError(f"backward_tiles: unsupported device {dev}")
+    if ch not in BACKWARD_CHANNELS:
+        raise ValueError(f"backward_tile kernel takes {BACKWARD_CHANNELS} "
+                         f"channels, got {ch}")
+    T = tile_bounds.shape[0] - 1
+    n = payload.shape[1]
+    out = torch.empty((7 + ch, n), dtype=torch.float32, device=dev)
+    if n == 0:
+        return out
+    chk = _kernels.check_cuda_tensor
+    f32 = torch.float32
+    args = (
+        chk(tile_bounds, "tile_bounds", torch.int32, dev, (T + 1,)),
+        chk(payload, "payload", f32, dev, (7 + ch, n)),
+        chk(rank, "rank", torch.int64, dev, (n,)),
+        n, T, grid_x, ch,
+        chk(g_color, "g_color", f32, dev, (T, PX, ch)),
+        chk(g_depth, "g_depth", f32, dev, (T, PX)),
+        chk(g_T, "g_final_T", f32, dev, (T, PX)),
+        chk(tiles.color, "color", f32, dev, (T, PX, ch)),
+        chk(tiles.depth, "depth", f32, dev, (T, PX)),
+        chk(tiles.final_T, "final_T", f32, dev, (T, PX)),
+        chk(tiles.n_contrib, "n_contrib", torch.int32, dev, (T, PX)),
+    )
+    _kernels.launch("backward_tile", dev, *args, out)
+    return out
+
+
+class TileComposite(torch.autograd.Function):
+    """Differentiable tile compositor (the custom VJP of
+    `make_pallas_compositor_sorted`, pallas_composite.py:1252-1330).
+
+    apply(mean2d [C,2], conic [C,3], opacity [C], color [C,ch], depth [C],
+    sb, tiles_touched [C], grid_x) -> (color [T,PX,ch], depth [T,PX],
+    final_T [T,PX], n_contrib [T,PX]). The values composited are those of
+    `sb.payload`, a detached copy of the five inputs; the backward returns
+    their gradients: B3's rows reduced per Gaussian by B4."""
+
+    @staticmethod
+    def forward(ctx, mean2d, conic, opacity, color, depth, sb: SortedBinning,
+                tiles_touched, grid_x: int):
+        ch = color.shape[-1]
+        tiles = forward_tiles(sb, grid_x, ch)
+        ctx.grid_x, ctx.ch, ctx.C = grid_x, ch, color.shape[0]
+        ctx.save_for_backward(sb.payload, sb.rank, sb.tile_bounds, sb.b_incl,
+                              tiles_touched, tiles.color, tiles.depth,
+                              tiles.final_T, tiles.n_contrib)
+        ctx.mark_non_differentiable(tiles.n_contrib)
+        return tiles.color, tiles.depth, tiles.final_T, tiles.n_contrib
+
+    @staticmethod
+    def backward(ctx, g_color, g_depth, g_T, _g_nc):
+        (payload, rank, bounds, b_incl, tiles_touched, color, depth, final_T,
+         n_contrib) = ctx.saved_tensors
+        ch = ctx.ch
+        tiles = TileImages(color=color, depth=depth, final_T=final_T,
+                           n_contrib=n_contrib)
+        rows = backward_tiles(bounds, payload, rank, tiles,
+                              g_color.contiguous(), g_depth.contiguous(),
+                              g_T.contiguous(), ctx.grid_x, ch)
+        d = rank_segment_sum(rows, b_incl, tiles_touched, ctx.C)
+        return (d[:, 0:2], d[:, 2:5], d[:, 5], d[:, 6:6 + ch], d[:, 6 + ch],
+                None, None, None)

@@ -17,10 +17,14 @@ from gaussianeditor_tpu_torch.ops.binning_sorted import (
     binning_key,
     binning_key_plain,
     key_depth_bits,
+    rank_segment_sum,
+    rank_segment_sum_plain,
     sorted_bin,
 )
 from gaussianeditor_tpu_torch.ops.render import preprocess_scene, render
 from gaussianeditor_tpu_torch.ops.tile_composite import (
+    backward_tiles,
+    backward_tiles_plain,
     forward_tiles,
     forward_tiles_plain,
 )
@@ -109,9 +113,73 @@ def test_render_on_cuda_counts_launches(cuda):
     with torch.no_grad():
         out = render(scene, cam)
     torch.cuda.synchronize()
-    assert _kernels.launch_counts() == {"binning_key": 1, "forward_tile": 1}
+    assert _kernels.launch_counts() == {"binning_key": 1, "forward_tile": 1,
+                                        "backward_tile": 0,
+                                        "rank_segment_sum": 0}
     assert out.color.is_cuda and torch.isfinite(out.color).all()
     assert out.color.shape == (64, 64, 3) and out.color.max() > 0
+
+
+def _cotangents(T, ch, device, seed=0):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    return (torch.randn((T, 256, ch), generator=g).to(device),
+            torch.randn((T, 256), generator=g).to(device) * 0.1,
+            torch.randn((T, 256), generator=g).to(device) * 0.05)
+
+
+def test_backward_tile_kernel_matches_plain(cuda):
+    proc = _proc(_scene(20000, cuda, seed=5), 200, cuda)
+    gx = 13
+    sb = sorted_bin(proc, gx, gx, 1 << 22)
+    tiles = forward_tiles(sb, gx, 3)
+    g_color, g_depth, g_T = _cotangents(gx * gx, 3, cuda)
+    args = (sb.tile_bounds, sb.payload, sb.rank, tiles, g_color, g_depth,
+            g_T, gx, 3)
+    got = backward_tiles(*args)
+    want = backward_tiles_plain(*args)
+    again = backward_tiles(*args)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, atol=1e-3, rtol=1e-2)
+    assert torch.equal(got, again)
+    with pytest.raises(ValueError, match="channels"):
+        backward_tiles(sb.tile_bounds, sb.payload[:8], sb.rank, tiles,
+                       g_color[..., :1], g_depth, g_T, gx, 1)
+
+
+def test_rank_segment_sum_kernel_matches_plain(cuda):
+    rng = np.random.RandomState(3)
+    counts = np.concatenate([rng.zipf(1.8, 5000).clip(max=300),
+                             np.zeros(3000, np.int64)])
+    rng.shuffle(counts)
+    b_incl = torch.as_tensor(np.cumsum(counts).astype(np.int32), device=cuda)
+    tt = torch.as_tensor(counts.astype(np.int32), device=cuda)
+    n = int(counts.sum()) - 17   # a budget that cuts the last segments
+    rows = torch.randn((10, n), device=cuda)
+    C = len(counts)
+    got = rank_segment_sum(rows, b_incl, tt, C)
+    want = rank_segment_sum_plain(rows, b_incl, tt, C)
+    torch.cuda.synchronize()
+    scale = want.pow(2).mean(0).sqrt()
+    assert float(((got - want).abs() / scale).max()) < 1e-5
+    assert torch.equal(got, rank_segment_sum(rows, b_incl, tt, C))
+    assert not got[tt == 0].any()
+
+
+def test_render_backward_on_cuda_counts_launches(cuda):
+    scene = _scene(5000, cuda, capacity=8000)
+    cam = lookat_camera((0, 0, -4), (0, 0, 0), (0, 1, 0), 0.8, 0.8, 64, 64,
+                        device=cuda)
+    _kernels.reset_launch_counts()
+    out = render(scene, cam)
+    grads = torch.autograd.grad(out.color.sum() + out.depth.sum(),
+                                [scene.xyz, scene.opacity_raw])
+    torch.cuda.synchronize()
+    assert _kernels.launch_counts() == {"binning_key": 1, "forward_tile": 1,
+                                        "backward_tile": 1,
+                                        "rank_segment_sum": 1}
+    assert all(torch.isfinite(g).all() for g in grads)
+    assert float(grads[0].abs().sum()) > 0
 
 
 def test_render_on_cuda_without_compiler_raises(cuda, monkeypatch, tmp_path):

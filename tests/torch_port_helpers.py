@@ -55,3 +55,23 @@ def port_proc(proc) -> ProcessedGaussians:
     """The port's ProcessedGaussians holding a JAX stage's output."""
     return ProcessedGaussians(*(torch.from_numpy(np.array(np.asarray(v)))
                                 for v in proc))
+
+
+def port_adam_state(state):
+    """The port's CPU AdamState holding a JAX AdamState's values."""
+    from gaussianeditor_tpu_torch.models.convert import adam_state_from_numpy
+
+    fields = {"count": int(state.count)}
+    for k in PARAMS:
+        fields["mu." + k] = np.asarray(getattr(state.mu, k))
+        fields["nu." + k] = np.asarray(getattr(state.nu, k))
+    return adam_state_from_numpy(fields, device="cpu")
+
+
+def port_stats(stats):
+    """The port's CPU DensifyStats holding a JAX DensifyStats' values."""
+    from gaussianeditor_tpu_torch.models.convert import densify_stats_from_numpy
+
+    return densify_stats_from_numpy(
+        np.asarray(stats.xyz_gradient_accum), np.asarray(stats.denom),
+        np.asarray(stats.max_radii2d), device="cpu")
