@@ -44,6 +44,25 @@ Phases, in order; any failure exits non-zero:
      parameter, moment and statistic must stay finite on every slot.
      Then one step twice from a copied state must give bitwise equal
      gradients and parameters, and one step runs under torch.profiler.
+  8. the dense route's kernels against their plain versions, at full
+     width (run after phase 6, on phase 3's view, before phase 7 trains
+     the scene): the color view (ch = 3) and an 8-channel feature render
+     of the same view, binned by `dense_bin` at the default budget.
+     Kernel B5's images must meet the JAX suite's image bounds and its
+     n_contrib agree on >= 99.9% of pixels; on the color view it must
+     equal B2's n_contrib on every pixel and its color and final_T be
+     within 2e-6 of B2's. Kernel B6's aligned rows must meet atol 1e-3 /
+     rtol 1e-2 against its plain version; gathered into rank order and
+     summed by B4 they must be within 3e-4 of each column's max of B3
+     then B4, and repeat bitwise. Timed as phase 6 times B3, beside
+     `dense_bin` and `sorted_bin`.
+  9. the train path through the dense route: the scene loaded again
+     from the PLY, phase 7's optimizer, cameras and targets, 6 steps of
+     `make_train_step(..., impl="pallas4")` with the launch counts zeroed
+     (B5, B6 and B4 2 x 6 times each, B1-B3 never); loss_l1 must fall
+     and everything stay finite, and its losses are printed beside phase
+     7's first 6; one step twice from a copied state bitwise equal; one
+     step profiled.
 Then it prints the kernels' JSON line, the card's name and power limit,
 and, last, {"ok": true, "device": {...}}.
 """
@@ -78,6 +97,8 @@ B3_OPS_EVALUATED = 19        # f32 ops to rebuild alpha for a row before n_contr
 B3_OPS_CONTRIB = 50          # + per contributing pair: c_hat 8, w 1, prefix 2,
                              # dpower 7, the 10 partials 20, T 2, their sum 10
 TRAIN_STEPS = (10, 2)        # train steps before and after the densify step
+DENSE_STEPS = 6              # train steps on the dense route (phase 9)
+FEATURE_CH = 8               # channels of phase 8's feature render
 COLOR_SHIFT = (1.2, 0.8, 0.8)
 # configs/edit.yaml: learning-rate scalers and max_steps
 LR_SCALERS = dict(gs_lr_scaler=3.0, gs_final_lr_scaler=2.0,
@@ -319,7 +340,7 @@ def phase_kernels(scene, device) -> list:
     plain_img = torch.clamp(
         tiles_to_image(main["plain_tiles"].color, gx, gy, SIZE, SIZE), 0.0, 1.0)
     view = dict(proc=color_proc, sb=main["sb"], tiles=main["tiles"],
-                contrib=main["contrib"], gx=gx)
+                contrib=main["contrib"], gx=gx, budget=budget)
     return cam, plain_img.cpu().numpy(), view, [
         dict(name="B1 binning_key", route="cuda",
              source="gaussianeditor_tpu_torch/csrc/binning_key.cu",
@@ -570,9 +591,252 @@ def phase_backward(view) -> list:
     ]
 
 
+def phase_dense(view, scene, cam, budget: int) -> list:
+    """Phase 8: kernels B5 and B6 against their plain versions on phase
+    3's color view and an 8-channel feature render of it, B5 against B2
+    and B6 then B4 against B3 then B4; returns their JSON rows."""
+    import torch
+
+    from gaussianeditor_tpu_torch.ops.binning_dense import dense_bin
+    from gaussianeditor_tpu_torch.ops.binning_sorted import (
+        rank_segment_sum,
+        sorted_bin,
+    )
+    from gaussianeditor_tpu_torch.ops.dense_composite import (
+        backward_chunks,
+        backward_chunks_plain,
+        forward_chunks,
+        forward_chunks_plain,
+        pack_instances,
+        rows_by_rank,
+    )
+    from gaussianeditor_tpu_torch.ops.render import preprocess_scene
+    from gaussianeditor_tpu_torch.ops.tile_composite import backward_tiles
+    from gaussianeditor_tpu_torch.testing import (
+        assert_images_close,
+        fraction_equal,
+    )
+
+    proc, sb, b2_tiles, gx = view["proc"], view["sb"], view["tiles"], view["gx"]
+    T = gx * gx
+    C = proc.tiles_touched.shape[0]
+    tt = proc.tiles_touched
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    feat = torch.rand((C, FEATURE_CH), generator=gen, device="cuda")
+    with torch.no_grad():
+        feat_proc = preprocess_scene(scene, cam, override_color=feat)
+
+    with torch.no_grad():
+        dense_ms = time_ms(lambda: dense_bin(proc, gx, gx, budget))
+        sorted_ms = time_ms(lambda: sorted_bin(proc, gx, gx, budget))
+    print(f"binning the color view: dense_bin {dense_ms:.4f} ms, sorted_bin "
+          f"{sorted_ms:.4f} ms (CUDA events around each call, its one host "
+          f"read included)", flush=True)
+
+    res = {}
+    for label, p in (("color view", proc), ("feature view", feat_proc)):
+        ch = p.color.shape[1]
+        with torch.no_grad():
+            db = dense_bin(p, gx, gx, budget)
+        assert not bool(db.overflow), f"{label}: overflow"
+        NC = db.chunk_tile.shape[0]
+        inst = pack_instances(p.mean2d, p.conic, p.opacity, p.color, p.depth,
+                              db)
+        # --- B5 ---
+        tk = forward_chunks(inst, db, gx)
+        tp, evaluated, contributed = forward_chunks_plain(inst, db, gx)
+        torch.cuda.synchronize()
+        for name, a, b, loose in (("color", tk.color, tp.color, 6e-3),
+                                  ("depth", tk.depth, tp.depth, 2e-2),
+                                  ("final_T", tk.final_T, tp.final_T, 6e-3)):
+            assert torch.isfinite(a).all(), f"B5 {label}: {name} not finite"
+            assert_images_close(a, b, loose=loose, name=f"B5 {label} {name}")
+        nc_eq = fraction_equal(tk.n_contrib, tp.n_contrib)
+        assert nc_eq >= 0.999, f"B5 {label}: n_contrib equal on {nc_eq:.5f}"
+        b5_err = max(float((tk.color - tp.color).abs().max()),
+                     float((tk.depth - tp.depth).abs().max()),
+                     float((tk.final_T - tp.final_T).abs().max()))
+        b5_ms = time_ms(lambda: forward_chunks(inst, db, gx))
+        print(f"B5 forward_chunk, {label} (ch {ch}): {int(db.num_rendered)} "
+              f"ranks in {int((db.chunk_nvalid > 0).sum())} live of {NC} "
+              f"chunks; n_contrib equal to plain on {nc_eq:.6f}, max abs "
+              f"err {b5_err:.3g}; kernel {b5_ms:.4f} ms", flush=True)
+
+        # --- B6 ---
+        g = torch.Generator(device="cuda").manual_seed(SEED + 3 + ch)
+        cot = (torch.randn((T, 256, ch), generator=g, device="cuda"),
+               0.1 * torch.randn((T, 256), generator=g, device="cuda"),
+               0.05 * torch.randn((T, 256), generator=g, device="cuda"))
+        bargs = (inst, db, tk) + cot + (gx,)
+        grows = backward_chunks(*bargs)
+        grows_plain = backward_chunks_plain(*bargs)
+        torch.cuda.synchronize()
+        assert torch.isfinite(grows).all(), f"B6 {label}: rows not finite"
+        err = (grows - grows_plain).abs()
+        ok = err <= 1e-3 + 1e-2 * grows_plain.abs()
+        b6_err = float(err.max())
+        b6_ms = time_ms(lambda: backward_chunks(*bargs))
+        print(f"B6 backward_chunk, {label} (ch {ch}): {NC} chunks x "
+              f"{grows.shape[1]} fields; max abs err vs plain {b6_err:.3g}, "
+              f"{float(ok.float().mean()):.7f} of entries within atol 1e-3 / "
+              f"rtol 1e-2; rows max |.| {float(grows_plain.abs().max()):.4g}; "
+              f"kernel {b6_ms:.4f} ms", flush=True)
+        assert bool(ok.all()), f"B6 {label}: rows differ from plain"
+        res[ch] = dict(db=db, inst=inst, tk=tk, tp=tp, grows=grows, cot=cot,
+                       pairs=int(evaluated.sum()),
+                       contrib=int(contributed.sum()), b5_err=b5_err,
+                       b5_ms=b5_ms, b6_err=b6_err, b6_ms=b6_ms)
+    assert set(res) == {3, FEATURE_CH}
+
+    # --- B5 against B2, the color view: the same rows in the same order ---
+    r = res[3]
+    tk, db, inst = r["tk"], r["db"], r["inst"]
+    assert torch.equal(tk.n_contrib, b2_tiles.n_contrib), \
+        "B5 and B2 n_contrib differ"
+    vs_b2 = max(float((tk.color - b2_tiles.color).abs().max()),
+                float((tk.final_T - b2_tiles.final_T).abs().max()))
+    assert vs_b2 <= 2e-6, f"B5 vs B2: {vs_b2}"
+    print(f"B5 vs B2 on the color view: n_contrib equal on every pixel, color "
+          f"and final_T within {vs_b2:.3g}", flush=True)
+
+    # --- B6 then B4 against B3 then B4, the color view ---
+    g_color, g_depth, g_T = r["cot"]
+    d_dense = rank_segment_sum(rows_by_rank(r["grows"], db.a_by_rank),
+                               db.b_incl, tt, C)
+    rows3 = backward_tiles(sb.tile_bounds, sb.payload, sb.rank, b2_tiles,
+                           g_color, g_depth, g_T, gx, 3)
+    d_sorted = rank_segment_sum(rows3, sb.b_incl, tt, C)
+    torch.cuda.synchronize()
+    col_max = d_sorted.abs().max(dim=0).values
+    rel = float(((d_dense - d_sorted).abs() / (col_max + 1e-30)).max())
+    print(f"B6 then B4 vs B3 then B4: max {rel:.3g} of each column's max "
+          f"(bitwise equal: {torch.equal(d_dense, d_sorted)})", flush=True)
+    assert rel <= 3e-4, f"dense gradients off by {rel} of a column's max"
+    grows2 = backward_chunks(inst, db, tk, g_color, g_depth, g_T, gx)
+    d2 = rank_segment_sum(rows_by_rank(grows2, db.a_by_rank), db.b_incl, tt,
+                          C)
+    torch.cuda.synchronize()
+    assert torch.equal(r["grows"], grows2), "B6 is not bitwise repeatable"
+    assert torch.equal(d_dense, d2), "B6 then B4 is not bitwise repeatable"
+    print("B6 then B4 run twice: bitwise equal", flush=True)
+
+    # --- times and bounds, the color view ---
+    bargs = (inst, db, tk, g_color, g_depth, g_T, gx)
+    b5_plain_ms = time_ms(lambda: forward_chunks_plain(inst, db, gx),
+                          runs=3)
+    b6_plain_ms = time_ms(lambda: backward_chunks_plain(*bargs), runs=3)
+    total = int(db.num_rendered)
+    NC, P, _ = inst.shape
+    G = P       # gradient fields: 2 + 3 + 1 + ch + 1
+    ch = P - 7
+    b5_ops = B2_OPS_EVALUATED * r["pairs"] + (
+        B2_OPS_CONTRIB_BASE + 2 * (ch + 1)) * r["contrib"]
+    # live instance rows, chunk n_valid and offset, bounds, the outputs
+    b5_bytes = 4 * P * total + 8 * NC + 4 * (T + 1) + 4 * T * 256 * (ch + 3)
+    sum_nc = int(tk.n_contrib.long().sum())
+    b6_ops = B3_OPS_EVALUATED * sum_nc + B3_OPS_CONTRIB * r["contrib"]
+    # live instance rows and metadata read, 11 per-pixel values read, the
+    # aligned rows written
+    b6_bytes = (4 * P * total + 8 * NC + 4 * (T + 1) + 4 * 11 * T * 256
+                + 4 * G * NC * 128)
+    out = []
+    for name, ops, nbytes, ms, plain_ms, err, src, line in (
+            ("B5 forward_chunk", b5_ops, b5_bytes, r["b5_ms"], b5_plain_ms,
+             max(res[k]["b5_err"] for k in res), "forward_chunk.cu", 292),
+            ("B6 backward_chunk", b6_ops, b6_bytes, r["b6_ms"], b6_plain_ms,
+             max(res[k]["b6_err"] for k in res), "backward_chunk.cu", 459)):
+        b_ops = 1e3 * ops / H100_FP32_PER_S
+        b_bytes = 1e3 * nbytes / H100_BYTES_PER_S
+        by = "operations" if b_ops >= b_bytes else "bytes"
+        print(f"{name}, color view: kernel {ms:.4f} ms (ch {FEATURE_CH}: "
+              f"{res[FEATURE_CH][name[:2].lower() + '_ms']:.4f} ms), plain "
+              f"{plain_ms:.4f} ms, bound {max(b_ops, b_bytes):.4f} ms ({by}; "
+              f"ops {b_ops:.4f}, bytes {b_bytes:.4f}, {nbytes} B)", flush=True)
+        out.append(dict(name=name, route="cuda",
+                        source=f"gaussianeditor_tpu_torch/csrc/{src}",
+                        replaces=f"gaussianeditor_tpu/ops/pallas_composite.py:{line}",
+                        max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                        bound_ms=max(b_ops, b_bytes), bound_by=by,
+                        library_ms=None))
+    print(f"evaluated pairs {r['pairs']}, contributing {r['contrib']}, rows "
+          f"before n_contrib {sum_nc}", flush=True)
+    return out
+
+
+def run_steps(step, state, cams, targets, k: int):
+    """`k` train steps, each timed on the host clock up to a synchronize;
+    returns the state and [(ms, metrics)]."""
+    import torch
+
+    hist = []
+    for _ in range(k):
+        t0 = time.perf_counter()
+        state, m = step(state, cams, targets)
+        torch.cuda.synchronize()
+        hist.append((1e3 * (time.perf_counter() - t0), m))
+    return state, hist
+
+
+def check_steps(state, hist, label: str) -> dict:
+    """loss_l1 falls, no overflow, every loss term, parameter, moment and
+    statistic finite on every slot; prints and returns the step times and
+    the peak device memory."""
+    import torch
+
+    l1 = [float(m["loss_l1"]) for _, m in hist]
+    print(f"{label}: loss_l1 by step: " + ", ".join(f"{v:.6f}" for v in l1),
+          flush=True)
+    last = hist[-1][1]
+    print("last step: " + ", ".join(f"{k} {float(v):.6g}"
+                                    for k, v in last.items()), flush=True)
+    assert l1[-1] < l1[0], f"{label}: loss_l1 did not fall"
+    assert not any(bool(m["overflow"]) for _, m in hist), "overflow"
+    for _, m in hist:
+        assert all(bool(torch.isfinite(v).all()) for k, v in m.items()
+                   if k != "overflow"), "a loss term is not finite"
+    for k, v in state.scene.params().items():
+        assert torch.isfinite(v).all(), f"{k} not finite"
+        assert torch.isfinite(state.opt_state.mu[k]).all(), f"mu {k}"
+        assert torch.isfinite(state.opt_state.nu[k]).all(), f"nu {k}"
+    for f in ("xyz_gradient_accum", "denom", "max_radii2d"):
+        assert torch.isfinite(getattr(state.stats, f)).all(), f
+    ms = [t for t, _ in hist]
+    stats = dict(median=statistics.median(ms),
+                 peak=torch.cuda.max_memory_allocated() / 2**30)
+    print(f"{label}: ms per step (host clock, synchronized): median "
+          f"{stats['median']:.2f}, first {ms[0]:.2f}, min {min(ms):.2f}, max "
+          f"{max(ms):.2f}; peak device memory {stats['peak']:.2f} GiB",
+          flush=True)
+    return stats
+
+
+def check_repeat(step, state, cams, targets, label: str) -> None:
+    """One step twice from a copied state: bitwise equal; then one more
+    step under torch.profiler."""
+    import torch
+
+    copy = state.clone()
+    g1, g2 = {}, {}
+    s1, m1 = step(state, cams, targets, grads=g1)
+    s2, m2 = step(copy, cams, targets, grads=g2)
+    torch.cuda.synchronize()
+    assert torch.equal(m1["loss"], m2["loss"]), "loss differs"
+    for k in g1:
+        assert torch.isfinite(g1[k]).all(), f"gradient of {k} not finite"
+        assert torch.equal(g1[k], g2[k]), f"gradient of {k} differs"
+        assert torch.equal(getattr(s1.scene, k), getattr(s2.scene, k)), k
+        assert torch.equal(s1.opt_state.nu[k], s2.opt_state.nu[k]), k
+    print(f"{label}: one step twice from a copied state: gradients (finite "
+          "on every slot), parameters and moments bitwise equal", flush=True)
+    del copy, s2, g1, g2
+    profile_once(lambda: step(state, cams, targets), f"one {label} step",
+                 top=15)
+
+
 def phase_train(scene, cameras_extent: float) -> dict:
     """Phase 7: the edit train step at full width; returns the launch
-    counts of its 12 steps and densify step."""
+    counts of its 12 steps and densify step, its step times and losses,
+    and what phase 9 takes over (optimizer, cameras, targets)."""
     import torch
 
     from gaussianeditor_tpu_torch.core.cameras import orbit_cameras
@@ -613,18 +877,8 @@ def phase_train(scene, cameras_extent: float) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    def run(k):
-        nonlocal state
-        out = []
-        for _ in range(k):
-            t0 = time.perf_counter()
-            state, m = step(state, cams, targets)
-            torch.cuda.synchronize()
-            out.append((1e3 * (time.perf_counter() - t0), m))
-        return out
-
     _kernels.reset_launch_counts()
-    hist = run(TRAIN_STEPS[0])
+    state, hist = run_steps(step, state, cams, targets, TRAIN_STEPS[0])
     st = state.stats
     seen = st.denom > 0
     thres = float(torch.quantile(st.xyz_gradient_accum[seen] / st.denom[seen],
@@ -640,7 +894,8 @@ def phase_train(scene, cameras_extent: float) -> dict:
         device="cuda").manual_seed(SEED))
     torch.cuda.synchronize()
     densify_ms = 1e3 * (time.perf_counter() - t0)
-    hist += run(TRAIN_STEPS[1])
+    state, more = run_steps(step, state, cams, targets, TRAIN_STEPS[1])
+    hist += more
     counts = _kernels.launch_counts()
     info = {k: int(v) for k, v in info.items()}
     print(f"train: {len(hist)} steps at batch 2, {SIZE}x{SIZE}, "
@@ -653,47 +908,60 @@ def phase_train(scene, cameras_extent: float) -> dict:
     for k in ("binning_key", "forward_tile", "backward_tile",
               "rank_segment_sum"):
         assert counts[k] == 2 * len(hist), f"{k} launched {counts[k]} times"
-    l1 = [float(m["loss_l1"]) for _, m in hist]
-    print("loss_l1 by step: " + ", ".join(f"{v:.6f}" for v in l1), flush=True)
-    last = hist[-1][1]
-    print("last step: " + ", ".join(f"{k} {float(v):.6g}"
-                                    for k, v in last.items()), flush=True)
-    assert l1[-1] < l1[0], "loss_l1 did not fall"
-    assert not any(bool(m["overflow"]) for _, m in hist), "overflow"
-    for _, m in hist:
-        assert all(bool(torch.isfinite(v).all()) for k, v in m.items()
-                   if k != "overflow"), "a loss term is not finite"
-    for k, v in scene.params().items():
-        assert torch.isfinite(v).all(), f"{k} not finite"
-        assert torch.isfinite(state.opt_state.mu[k]).all(), f"mu {k}"
-        assert torch.isfinite(state.opt_state.nu[k]).all(), f"nu {k}"
-    for f in ("xyz_gradient_accum", "denom", "max_radii2d"):
-        assert torch.isfinite(getattr(state.stats, f)).all(), f
+    stats = check_steps(state, hist, "train")
     assert info["n_cloned"] + info["n_split"] > 0, "densify did nothing"
-    ms = [t for t, _ in hist]
-    print(f"ms per step (host clock, synchronized): median "
-          f"{statistics.median(ms):.2f}, first {ms[0]:.2f}, min {min(ms):.2f},"
-          f" max {max(ms):.2f}; peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    check_repeat(step, state, cams, targets, "train")
+    return dict(counts=counts, stats=stats, optim=optim, cams=cams,
+                targets=targets, l1=[float(m["loss_l1"]) for _, m in hist])
 
-    # one step twice from a copied state: bitwise
-    copy = state.clone()
-    g1, g2 = {}, {}
-    s1, m1 = step(state, cams, targets, grads=g1)
-    s2, m2 = step(copy, cams, targets, grads=g2)
+
+def phase_train_dense(tr: dict, ply: str) -> dict:
+    """Phase 9: the train step through the dense route, from the scene as
+    the PLY loads it (phase 7 trained its copy past the point where the
+    loss still falls) with phase 7's optimizer, cameras and targets;
+    returns the launch counts of its steps."""
+    import torch
+
+    from gaussianeditor_tpu_torch.models.ply import load_ply, ply_vertex_count
+    from gaussianeditor_tpu_torch.ops import _kernels
+    from gaussianeditor_tpu_torch.train.perceptual import (
+        multiscale_gradient_loss,
+    )
+    from gaussianeditor_tpu_torch.train.trainer import (
+        LossWeights,
+        init_train_state,
+        make_train_step,
+    )
+
+    scene = load_ply(ply, capacity=4 * ply_vertex_count(ply), device="cuda")
+    step = make_train_step(tr["optim"], LossWeights(),
+                           perceptual=multiscale_gradient_loss,
+                           impl="pallas4")
+    cams, targets = tr["cams"], tr["targets"]
+    state = init_train_state(scene, tr["optim"])
     torch.cuda.synchronize()
-    assert torch.equal(m1["loss"], m2["loss"]), "loss differs"
-    for k in g1:
-        assert torch.isfinite(g1[k]).all(), f"gradient of {k} not finite"
-        assert torch.equal(g1[k], g2[k]), f"gradient of {k} differs"
-        assert torch.equal(getattr(s1.scene, k), getattr(s2.scene, k)), k
-        assert torch.equal(s1.opt_state.nu[k], s2.opt_state.nu[k]), k
-    print("one step twice from a copied state: gradients (finite on every "
-          "slot), parameters and moments bitwise equal", flush=True)
-    del copy, s2, g1, g2
-
-    profile_once(lambda: step(state, cams, targets), "one train step",
-                 top=15)
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launch_counts()
+    state, hist = run_steps(step, state, cams, targets, DENSE_STEPS)
+    counts = _kernels.launch_counts()
+    print(f"dense-route launches over {DENSE_STEPS} steps at batch 2: "
+          f"{counts}", flush=True)
+    for k in ("forward_chunk", "backward_chunk", "rank_segment_sum"):
+        assert counts[k] == 2 * DENSE_STEPS, f"{k} launched {counts[k]} times"
+    for k in ("binning_key", "forward_tile", "backward_tile"):
+        assert counts[k] == 0, f"{k} launched on the dense route"
+    stats = check_steps(state, hist, "train (dense route)")
+    # the same scene, optimizer, views and targets as phase 7's first steps
+    l1 = [float(m["loss_l1"]) for _, m in hist]
+    diff = max(abs(a - b) for a, b in zip(l1, tr["l1"]))
+    print(f"loss_l1 of the dense route's {DENSE_STEPS} steps against the "
+          f"sorted route's first {DENSE_STEPS} (phase 7): max abs difference "
+          f"{diff:.3g} (equal: {l1 == tr['l1'][:DENSE_STEPS]})", flush=True)
+    print(f"step median: dense route {stats['median']:.2f} ms, sorted route "
+          f"(phase 7) {tr['stats']['median']:.2f} ms; peak device memory "
+          f"{stats['peak']:.2f} GiB against {tr['stats']['peak']:.2f} GiB",
+          flush=True)
+    check_repeat(step, state, cams, targets, "train (dense route)")
     return counts
 
 
@@ -754,22 +1022,36 @@ def main() -> int:
 
         # 6. the backward kernels vs plain at full width
         kernels += phase_backward(view)
+
+        # 8. the dense route's kernels vs plain at full width, on phase
+        # 3's view before phase 7 trains the scene
+        kernels += phase_dense(view, state.scene, cam, view["budget"])
         del view
 
         # 7. the train path
-        train_counts = phase_train(state.scene, state.cameras_extent)
+        tr = phase_train(state.scene, state.cameras_extent)
+        train_counts = tr["counts"]
+        del state   # phase 7's trained scene: phase 9 loads the PLY again
+
+        # 9. the train path through the dense route
+        dense_counts = phase_train_dense(tr, ply)
+        del tr
 
     # launches on each kernel's own path: B1 and B2 serve frames (phase
-    # 4), B3 and B4 train (phase 7); both paths' counts are listed
+    # 4), B3 and B4 train (phase 7), B5 and B6 train on the dense route
+    # (phase 9); every path's counts are listed
     names = {"B1 binning_key": ("binning_key", serve_counts),
              "B2 forward_tile": ("forward_tile", serve_counts),
              "B3 backward_tile": ("backward_tile", train_counts),
-             "B4 rank_segment_sum": ("rank_segment_sum", train_counts)}
+             "B4 rank_segment_sum": ("rank_segment_sum", train_counts),
+             "B5 forward_chunk": ("forward_chunk", dense_counts),
+             "B6 backward_chunk": ("backward_chunk", dense_counts)}
     for k in kernels:
         key, counts = names[k["name"]]
         k["launches"] = counts[key]
         k["launches_by_path"] = {"serve": serve_counts[key],
-                                 "train": train_counts[key]}
+                                 "train": train_counts[key],
+                                 "train_dense": dense_counts[key]}
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

@@ -206,17 +206,26 @@ extern "C" int backward_tile(const void* bounds, const void* payload,
   // one block per tile, and one for the rows past the last tile
   const dim3 grid(num_tiles + 1), block(kPx);
   cudaStream_t s = (cudaStream_t)stream;
+#define LAUNCH(CH)                                                          \
+  backward_tile_kernel<CH><<<grid, block, 0, s>>>(                          \
+      (const int*)bounds, (const float*)payload, (const long long*)rank, n, \
+      num_tiles, grid_x, (const float*)g_color, (const float*)g_depth,      \
+      (const float*)g_T, (const float*)color, (const float*)depth,          \
+      (const float*)final_T, (const int*)n_contrib, (float*)out)
   switch (ch) {
+    case 1:
+      LAUNCH(1);
+      break;
+    case 2:
+      LAUNCH(2);
+      break;
     case 3:
-      backward_tile_kernel<3><<<grid, block, 0, s>>>(
-          (const int*)bounds, (const float*)payload, (const long long*)rank,
-          n, num_tiles, grid_x, (const float*)g_color, (const float*)g_depth,
-          (const float*)g_T, (const float*)color, (const float*)depth,
-          (const float*)final_T, (const int*)n_contrib, (float*)out);
+      LAUNCH(3);
       break;
     default:
       return (int)cudaErrorInvalidValue;
   }
+#undef LAUNCH
   return (int)cudaGetLastError();
 }
 

@@ -123,6 +123,10 @@ extern "C" int forward_tile(const void* bounds, const void* payload,
       forward_tile_kernel<1><<<grid, block, 0, s>>>(b, pl, n, grid_x, oc, od,
                                                     ot, on);
       break;
+    case 2:
+      forward_tile_kernel<2><<<grid, block, 0, s>>>(b, pl, n, grid_x, oc, od,
+                                                    ot, on);
+      break;
     case 3:
       forward_tile_kernel<3><<<grid, block, 0, s>>>(b, pl, n, grid_x, oc, od,
                                                     ot, on);

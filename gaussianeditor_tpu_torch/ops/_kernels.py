@@ -55,6 +55,12 @@ SIGNATURES = {
     "backward_tile": (_P, _P, _P, _L, _I, _I, _I) + (_P,) * 9,
     # rows, b_incl, tiles_touched, gf, n, C, out, stream
     "rank_segment_sum": (_P, _P, _P, _I, _L, _I, _P, _P),
+    # bounds, nvalid, offset, inst, num_tiles, grid_x, ch, color, depth,
+    # final_T, n_contrib, stream
+    "forward_chunk": (_P,) * 4 + (_I,) * 3 + (_P,) * 5,
+    # bounds, nvalid, offset, inst, num_chunks, num_tiles, grid_x, ch,
+    # g_color, g_depth, g_T, color, depth, final_T, n_contrib, out, stream
+    "backward_chunk": (_P,) * 4 + (_I,) * 4 + (_P,) * 9,
 }
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in SIGNATURES}

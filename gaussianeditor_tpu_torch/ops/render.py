@@ -1,27 +1,33 @@
-"""Render a GaussianScene: preprocess -> sorted binning -> tile compositor.
+"""Render a GaussianScene: preprocess -> binning -> tile compositor.
 
 Counterpart of `gaussianeditor_tpu/ops/render.py` (`RenderOutput`,
 `render`, `render_safe`, `default_max_instances`). Images are
 channels-last, [H, W, C], as in the JAX package; `bg` is added after
 compositing, weighted by the final transmittance.
 
-One route. The JAX package picks among 'pallas' (sorted), 'pallas4',
-'tiled' and 'ref'; its sorted route carries ints through f32 and hands
-budgets above 2^24 (the viewer's default at 1M Gaussians and 4x capacity
-is 128M) and renders with more than 3 channels to 'pallas4'. Here ints
-stay int32 and every budget takes the sorted route: on CUDA tensors
-through kernels B1 and B2 (`csrc/binning_key.cu`, `csrc/forward_tile.cu`),
-on CPU tensors through their plain versions. On CUDA the compositor
-takes 1 channel (the viewer's mask overlay) or 3 (RGB); other widths
-wait for the 'pallas4' kernels.
+Two routes, chosen by `impl` as in the JAX package:
+  * 'pallas' (the default, also `None`): sorted binning and the tile
+    compositor, kernels B1 and B2 forward (`csrc/binning_key.cu`,
+    `csrc/forward_tile.cu`) and B3 and B4 backward
+    (`csrc/backward_tile.cu`, `csrc/rank_segment_sum.cu`). Its kernels
+    take 1 to 3 channels; a wider render takes the dense route, as the
+    JAX package routes it.
+  * 'pallas4': dense (chunk-aligned) binning and the chunk compositor,
+    kernels B5 forward (`csrc/forward_chunk.cu`) and B6 then B4 backward
+    (`csrc/backward_chunk.cu`), for 1 to 32 channels.
+On CPU tensors each kernel's plain version runs instead. The JAX
+package also sends budgets above 2^24 to 'pallas4', because its sorted
+route carries ints through f32; here ints stay int32 and int64 keys, so
+every budget takes the route `impl` names. 'tiled' and 'ref' (the JAX
+package's plain-XLA scan compositor and dense oracle) are not ported yet
+and raise.
 
 Differentiable: under autograd the preprocess is differentiated as
-plain torch and the compositor through `TileComposite` (kernels B3 and
-B4 on CUDA, their plain versions on the CPU; on CUDA the backward takes
-3 channels). The binning is built under `no_grad`. `mean2d_offset_ndc`,
-an all-zero [C, 2] tensor that requires grad, is the densification
-probe: its gradient is the viewspace gradient of the reference's
-`screenspace_points`.
+plain torch and the compositor through `TileComposite` or
+`DenseComposite`. The binning is built under `no_grad`.
+`mean2d_offset_ndc`, an all-zero [C, 2] tensor that requires grad, is
+the densification probe: its gradient is the viewspace gradient of the
+reference's `screenspace_points`.
 """
 
 from __future__ import annotations
@@ -32,10 +38,17 @@ from typing import NamedTuple, Optional
 import torch
 
 from gaussianeditor_tpu_torch.core.cameras import Camera
+from gaussianeditor_tpu_torch.ops.binning_dense import dense_bin
 from gaussianeditor_tpu_torch.ops.binning_sorted import sorted_bin
 from gaussianeditor_tpu_torch.ops.composite import tiles_to_image
+from gaussianeditor_tpu_torch.ops.dense_composite import DenseComposite
 from gaussianeditor_tpu_torch.ops.preprocess import TILE, preprocess
-from gaussianeditor_tpu_torch.ops.tile_composite import TileComposite
+from gaussianeditor_tpu_torch.ops.tile_composite import (
+    KERNEL_CHANNELS,
+    TileComposite,
+)
+
+IMPLS = (None, "pallas", "pallas4")
 
 
 class RenderOutput(NamedTuple):
@@ -86,12 +99,22 @@ def render(
     scale_modifier: float = 1.0,
     override_color: Optional[torch.Tensor] = None,
     mean2d_offset_ndc: Optional[torch.Tensor] = None,
+    impl: Optional[str] = None,
     max_instances: Optional[int] = None,
 ) -> RenderOutput:
     """Render `scene` through `camera` on the scene's device.
 
+    impl: None or 'pallas' (sorted route; renders of more than 3 channels
+    take the dense route) or 'pallas4' (dense route).
     max_instances: total tile-instance budget; exceeding it sets
     `overflow` (see `render_safe`)."""
+    if impl not in IMPLS:
+        if impl in ("tiled", "ref"):
+            raise ValueError(
+                f"render impl {impl!r} is not ported yet: the JAX package's "
+                "plain-XLA routes come with the slices that need them "
+                "(ROADMAP.md, queue A)")
+        raise ValueError(f"render impl must be one of {IMPLS}, got {impl!r}")
     dev = scene.device
     camera = camera.to(dev)
     H, W = camera.height, camera.width
@@ -109,11 +132,19 @@ def render(
     grid_y = (H + TILE - 1) // TILE
     if max_instances is None:
         max_instances = default_max_instances(scene.capacity)
-    with torch.no_grad():
-        sb = sorted_bin(proc, grid_x, grid_y, max_instances)
-    t_color, t_depth, t_final_T, t_nc = TileComposite.apply(
-        proc.mean2d, proc.conic, proc.opacity, proc.color, proc.depth, sb,
-        proc.tiles_touched, grid_x)
+    comp_args = (proc.mean2d, proc.conic, proc.opacity, proc.color,
+                 proc.depth)
+    if impl == "pallas4" or proc.color.shape[-1] > max(KERNEL_CHANNELS):
+        with torch.no_grad():
+            binning = dense_bin(proc, grid_x, grid_y, max_instances)
+        tiles = DenseComposite.apply(*comp_args, binning, proc.tiles_touched,
+                                     grid_x)
+    else:
+        with torch.no_grad():
+            binning = sorted_bin(proc, grid_x, grid_y, max_instances)
+        tiles = TileComposite.apply(*comp_args, binning, proc.tiles_touched,
+                                    grid_x)
+    t_color, t_depth, t_final_T, t_nc = tiles
 
     color = tiles_to_image(t_color, grid_x, grid_y, H, W)
     depth = tiles_to_image(t_depth, grid_x, grid_y, H, W)
@@ -128,8 +159,8 @@ def render(
         final_T=final_T,
         radii=proc.radius,
         visible=proc.visible,
-        num_rendered=sb.num_rendered,
-        overflow=sb.overflow,
+        num_rendered=binning.num_rendered,
+        overflow=binning.overflow,
         n_contrib=n_contrib,
     )
 

@@ -16,7 +16,7 @@ five per-Gaussian inputs only through B3 and B4, in a fixed order.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -34,8 +34,8 @@ from gaussianeditor_tpu_torch.ops.composite import (
 from gaussianeditor_tpu_torch.ops.preprocess import TILE
 
 PX = TILE * TILE
-KERNEL_CHANNELS = (1, 3)  # forward_tile.cu's instances: the mask and RGB
-BACKWARD_CHANNELS = (3,)  # backward_tile.cu's: the train step renders RGB
+KERNEL_CHANNELS = (1, 2, 3)  # forward_tile.cu's and backward_tile.cu's
+                             # instances; wider renders take the dense route
 
 
 def _pixel_coords(num_tiles: int, grid_x: int, device):
@@ -47,19 +47,21 @@ def _pixel_coords(num_tiles: int, grid_x: int, device):
     return px.to(torch.float32), py.to(torch.float32)
 
 
-def forward_tiles_plain(tile_bounds: torch.Tensor, payload: torch.Tensor,
-                        grid_x: int, ch: int
-                        ) -> Tuple[TileImages, torch.Tensor, torch.Tensor]:
-    """Plain torch version of kernel B2, with the kernel's arithmetic: the
-    same per-pixel recurrence, one sorted row position at a time for all
-    tiles at once. Also returns, per pixel, how many rows it evaluated
-    before it was done and how many of them contributed ([num_tiles, PX]
-    int64 each): the work the kernel must do on these inputs."""
+def composite_rows_plain(start: torch.Tensor, cnt: torch.Tensor,
+                         payload: torch.Tensor, grid_x: int, ch: int
+                         ) -> Tuple[TileImages, torch.Tensor, torch.Tensor]:
+    """The forward recurrence of kernels B2 and B5 in plain torch: tile t
+    composites the depth-sorted rows [start[t], start[t] + cnt[t]) of the
+    field-major payload [7 + ch, n], one row position at a time for all
+    tiles at once; a pixel's n_contrib is the tile-local position of its
+    last contributing row, plus one. Also returns, per pixel, how many
+    rows it evaluated before it was done and how many of them contributed
+    ([num_tiles, PX] int64 each): the work the kernel must do."""
     dev = payload.device
-    T = tile_bounds.shape[0] - 1
+    T = start.shape[0]
     n = payload.shape[1]
-    start = tile_bounds[:-1].to(torch.int64)
-    cnt = (tile_bounds[1:] - tile_bounds[:-1]).to(torch.int64)
+    start = start.to(torch.int64)
+    cnt = cnt.to(torch.int64)
     px, py = _pixel_coords(T, grid_x, dev)
 
     trans = torch.ones((T, PX), dtype=torch.float32, device=dev)
@@ -96,6 +98,16 @@ def forward_tiles_plain(tile_bounds: torch.Tensor, payload: torch.Tensor,
             evaluated, contributed)
 
 
+def forward_tiles_plain(tile_bounds: torch.Tensor, payload: torch.Tensor,
+                        grid_x: int, ch: int
+                        ) -> Tuple[TileImages, torch.Tensor, torch.Tensor]:
+    """Plain torch version of kernel B2: `composite_rows_plain` over each
+    tile's sorted rows [tile_bounds[t], tile_bounds[t+1])."""
+    return composite_rows_plain(tile_bounds[:-1],
+                                tile_bounds[1:] - tile_bounds[:-1], payload,
+                                grid_x, ch)
+
+
 def forward_tiles(sb: SortedBinning, grid_x: int, ch: int) -> TileImages:
     """Kernel B2 on CUDA tensors, its plain version on CPU tensors."""
     payload, bounds = sb.payload, sb.tile_bounds
@@ -123,25 +135,27 @@ def forward_tiles(sb: SortedBinning, grid_x: int, ch: int) -> TileImages:
                       n_contrib=n_contrib)
 
 
-def backward_tiles_plain(tile_bounds: torch.Tensor, payload: torch.Tensor,
-                         rank: torch.Tensor, tiles: TileImages,
-                         g_color: torch.Tensor, g_depth: torch.Tensor,
-                         g_T: torch.Tensor, grid_x: int, ch: int
-                         ) -> torch.Tensor:
-    """Plain torch version of kernel B3: the gradient rows [7 + ch, n]
-    (d mean2d x y, d conic a b c, d opacity, d color, d depth) of every
-    sorted row, written to its pre-sort rank. The same per-pixel
-    recurrence as the kernel, one sorted row position at a time for all
-    tiles at once; rows past a tile's largest n_contrib stay zero."""
+def backward_rows_plain(start: torch.Tensor, cnt: torch.Tensor,
+                        payload: torch.Tensor, out_col: Optional[torch.Tensor],
+                        tiles: TileImages, g_color: torch.Tensor,
+                        g_depth: torch.Tensor, g_T: torch.Tensor, grid_x: int,
+                        ch: int) -> torch.Tensor:
+    """The backward recurrence of kernels B3 and B6 in plain torch: the
+    gradient rows [7 + ch, n] (d mean2d x y, d conic a b c, d opacity,
+    d color, d depth) of the rows `composite_rows_plain` composited for
+    (start, cnt), row r written to column out_col[r] (to column r when
+    `out_col` is None). One row position at a time for all tiles at once;
+    rows past a tile's largest n_contrib, and columns no row maps to,
+    stay zero."""
     dev = payload.device
-    T = tile_bounds.shape[0] - 1
+    T = start.shape[0]
     n = payload.shape[1]
     G = 7 + ch
     rows = torch.zeros((G, n), dtype=torch.float32, device=dev)
     if n == 0 or T == 0:
         return rows
-    start = tile_bounds[:-1].to(torch.int64)
-    cnt = (tile_bounds[1:] - tile_bounds[:-1]).to(torch.int64)
+    start = start.to(torch.int64)
+    cnt = cnt.to(torch.int64)
     px, py = _pixel_coords(T, grid_x, dev)
     nc = tiles.n_contrib.to(torch.int64)
     S = g_T * tiles.final_T
@@ -182,8 +196,21 @@ def backward_tiles_plain(tile_bounds: torch.Tensor, payload: torch.Tensor,
                                               0.0)
         trans = torch.where(on, trans * (1.0 - alpha), trans)
         sel = cnt > i
-        rows[:, rank[start[sel] + i]] = sums[sel].T
+        src = start[sel] + i
+        rows[:, src if out_col is None else out_col[src]] = sums[sel].T
     return rows
+
+
+def backward_tiles_plain(tile_bounds: torch.Tensor, payload: torch.Tensor,
+                         rank: torch.Tensor, tiles: TileImages,
+                         g_color: torch.Tensor, g_depth: torch.Tensor,
+                         g_T: torch.Tensor, grid_x: int, ch: int
+                         ) -> torch.Tensor:
+    """Plain torch version of kernel B3: `backward_rows_plain` over each
+    tile's sorted rows, every row written to its pre-sort rank."""
+    return backward_rows_plain(tile_bounds[:-1],
+                               tile_bounds[1:] - tile_bounds[:-1], payload,
+                               rank, tiles, g_color, g_depth, g_T, grid_x, ch)
 
 
 def backward_tiles(tile_bounds: torch.Tensor, payload: torch.Tensor,
@@ -197,8 +224,8 @@ def backward_tiles(tile_bounds: torch.Tensor, payload: torch.Tensor,
                                     g_color, g_depth, g_T, grid_x, ch)
     if dev.type != "cuda":
         raise ValueError(f"backward_tiles: unsupported device {dev}")
-    if ch not in BACKWARD_CHANNELS:
-        raise ValueError(f"backward_tile kernel takes {BACKWARD_CHANNELS} "
+    if ch not in KERNEL_CHANNELS:
+        raise ValueError(f"backward_tile kernel takes {KERNEL_CHANNELS} "
                          f"channels, got {ch}")
     T = tile_bounds.shape[0] - 1
     n = payload.shape[1]

@@ -77,6 +77,7 @@ def init_train_state(scene: GaussianScene, optim: GaussianAdam) -> TrainState:
 def make_train_step(optim: GaussianAdam, weights: LossWeights, *,
                     perceptual: Optional[Callable] = None,
                     local_edit: bool = False, with_inject: bool = False,
+                    impl: Optional[str] = None,
                     max_instances: Optional[int] = None):
     """Build the edit train step.
 
@@ -86,8 +87,9 @@ def make_train_step(optim: GaussianAdam, weights: LossWeights, *,
     [H,W,3]) -> scalar. with_inject: `inject_grad` [B, H, W, 3] is a
     precomputed score-distillation image gradient, already weighted; the
     step adds sum(render * inject_grad) to the loss, so its gradient
-    flows into the parameters. grads: when a dict is passed, it receives
-    the step's parameter gradients (before the mask)."""
+    flows into the parameters. impl: the render route (`render`'s `impl`).
+    grads: when a dict is passed, it receives the step's parameter
+    gradients (before the mask)."""
 
     def train_step(state: TrainState, cameras: Sequence[Camera],
                    targets: torch.Tensor, weights: LossWeights = weights,
@@ -110,7 +112,7 @@ def make_train_step(optim: GaussianAdam, weights: LossWeights, *,
         l1s, lps, injs = [], [], []
         for b in range(B):
             out = render(s, cameras[b], bg, mean2d_offset_ndc=offsets[b],
-                         max_instances=max_instances)
+                         impl=impl, max_instances=max_instances)
             l1s.append(l1_loss(out.color, targets[b]))
             if perceptual is not None:
                 lps.append(perceptual(out.color, targets[b]))

@@ -13,6 +13,7 @@ import torch
 from gaussianeditor_tpu_torch.core.cameras import lookat_camera
 from gaussianeditor_tpu_torch.models.gaussians import GaussianScene
 from gaussianeditor_tpu_torch.ops import _kernels
+from gaussianeditor_tpu_torch.ops.binning_dense import dense_bin
 from gaussianeditor_tpu_torch.ops.binning_sorted import (
     binning_key,
     binning_key_plain,
@@ -20,6 +21,14 @@ from gaussianeditor_tpu_torch.ops.binning_sorted import (
     rank_segment_sum,
     rank_segment_sum_plain,
     sorted_bin,
+)
+from gaussianeditor_tpu_torch.ops.dense_composite import (
+    MAX_CHANNELS,
+    backward_chunks,
+    backward_chunks_plain,
+    forward_chunks,
+    forward_chunks_plain,
+    pack_instances,
 )
 from gaussianeditor_tpu_torch.ops.render import preprocess_scene, render
 from gaussianeditor_tpu_torch.ops.tile_composite import (
@@ -31,6 +40,8 @@ from gaussianeditor_tpu_torch.ops.tile_composite import (
 from gaussianeditor_tpu_torch.testing import assert_images_close, fraction_equal
 
 pytestmark = pytest.mark.cuda
+
+NO_LAUNCHES = dict.fromkeys(_kernels.SIGNATURES, 0)
 
 
 @pytest.fixture
@@ -64,11 +75,16 @@ def _scene(n, device, seed=0, capacity=None, sh=1):
                                 alive=np.arange(cap) < n)
 
 
-def _proc(scene, hw, device):
+def _proc(scene, hw, device, ch=3):
+    """One view's preprocess; ch != 3 renders a seeded [C, ch] feature."""
     cam = lookat_camera((0, 0, -4), (0, 0, 0), (0, 1, 0), 0.8, 0.8, hw, hw,
                         device=device)
+    oc = None
+    if ch != 3:
+        g = torch.Generator(device="cpu").manual_seed(ch)
+        oc = torch.rand((scene.capacity, ch), generator=g).to(device)
     with torch.no_grad():
-        return preprocess_scene(scene, cam)
+        return preprocess_scene(scene, cam, override_color=oc)
 
 
 @pytest.mark.parametrize("budget", [1 << 20, 3000])
@@ -89,11 +105,9 @@ def test_binning_key_kernel_matches_plain(cuda, budget):
     assert torch.equal(payload, want_payload)
 
 
-@pytest.mark.parametrize("ch", [1, 3])
+@pytest.mark.parametrize("ch", [1, 2, 3])
 def test_forward_tile_kernel_matches_plain(cuda, ch):
-    proc = _proc(_scene(20000, cuda, seed=ch), 200, cuda)
-    if ch == 1:
-        proc = proc._replace(color=proc.color[:, :1].contiguous())
+    proc = _proc(_scene(20000, cuda, seed=ch), 200, cuda, ch=ch)
     gx = 13
     sb = sorted_bin(proc, gx, gx, 1 << 22)
     got = forward_tiles(sb, gx, ch)
@@ -113,9 +127,8 @@ def test_render_on_cuda_counts_launches(cuda):
     with torch.no_grad():
         out = render(scene, cam)
     torch.cuda.synchronize()
-    assert _kernels.launch_counts() == {"binning_key": 1, "forward_tile": 1,
-                                        "backward_tile": 0,
-                                        "rank_segment_sum": 0}
+    assert _kernels.launch_counts() == dict(NO_LAUNCHES, binning_key=1,
+                                            forward_tile=1)
     assert out.color.is_cuda and torch.isfinite(out.color).all()
     assert out.color.shape == (64, 64, 3) and out.color.max() > 0
 
@@ -127,14 +140,15 @@ def _cotangents(T, ch, device, seed=0):
             torch.randn((T, 256), generator=g).to(device) * 0.05)
 
 
-def test_backward_tile_kernel_matches_plain(cuda):
-    proc = _proc(_scene(20000, cuda, seed=5), 200, cuda)
+@pytest.mark.parametrize("ch", [1, 2, 3])
+def test_backward_tile_kernel_matches_plain(cuda, ch):
+    proc = _proc(_scene(20000, cuda, seed=5), 200, cuda, ch=ch)
     gx = 13
     sb = sorted_bin(proc, gx, gx, 1 << 22)
-    tiles = forward_tiles(sb, gx, 3)
-    g_color, g_depth, g_T = _cotangents(gx * gx, 3, cuda)
+    tiles = forward_tiles(sb, gx, ch)
+    g_color, g_depth, g_T = _cotangents(gx * gx, ch, cuda)
     args = (sb.tile_bounds, sb.payload, sb.rank, tiles, g_color, g_depth,
-            g_T, gx, 3)
+            g_T, gx, ch)
     got = backward_tiles(*args)
     want = backward_tiles_plain(*args)
     again = backward_tiles(*args)
@@ -142,9 +156,11 @@ def test_backward_tile_kernel_matches_plain(cuda):
     assert torch.isfinite(got).all()
     torch.testing.assert_close(got, want, atol=1e-3, rtol=1e-2)
     assert torch.equal(got, again)
+    # the widest instance is 3 channels: wider renders take the dense route
+    wide = torch.zeros((gx * gx, 256, 4), device=cuda)
     with pytest.raises(ValueError, match="channels"):
-        backward_tiles(sb.tile_bounds, sb.payload[:8], sb.rank, tiles,
-                       g_color[..., :1], g_depth, g_T, gx, 1)
+        backward_tiles(sb.tile_bounds, sb.payload, sb.rank, tiles, wide,
+                       g_depth, g_T, gx, 4)
 
 
 def test_rank_segment_sum_kernel_matches_plain(cuda):
@@ -175,11 +191,97 @@ def test_render_backward_on_cuda_counts_launches(cuda):
     grads = torch.autograd.grad(out.color.sum() + out.depth.sum(),
                                 [scene.xyz, scene.opacity_raw])
     torch.cuda.synchronize()
-    assert _kernels.launch_counts() == {"binning_key": 1, "forward_tile": 1,
-                                        "backward_tile": 1,
-                                        "rank_segment_sum": 1}
+    assert _kernels.launch_counts() == dict(
+        NO_LAUNCHES, binning_key=1, forward_tile=1, backward_tile=1,
+        rank_segment_sum=1)
     assert all(torch.isfinite(g).all() for g in grads)
     assert float(grads[0].abs().sum()) > 0
+
+
+def _dense_view(cuda, ch, seed=4):
+    proc = _proc(_scene(20000, cuda, seed=seed), 200, cuda, ch=ch)
+    gx = 13
+    db = dense_bin(proc, gx, gx, 1 << 22)
+    inst = pack_instances(proc.mean2d, proc.conic, proc.opacity, proc.color,
+                          proc.depth, db)
+    return db, inst, gx
+
+
+@pytest.mark.parametrize("ch", [1, 3, 8])
+def test_forward_chunk_kernel_matches_plain(cuda, ch):
+    db, inst, gx = _dense_view(cuda, ch)
+    got = forward_chunks(inst, db, gx)
+    want, _, _ = forward_chunks_plain(inst, db, gx)
+    again = forward_chunks(inst, db, gx)
+    torch.cuda.synchronize()
+    assert_images_close(got.color, want.color, name="color")
+    assert_images_close(got.depth, want.depth, loose=2e-2, name="depth")
+    assert_images_close(got.final_T, want.final_T, name="final_T")
+    assert fraction_equal(got.n_contrib, want.n_contrib) >= 0.999
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="channels"):
+        wide = torch.zeros((inst.shape[0], 8 + MAX_CHANNELS, 128), device=cuda)
+        forward_chunks(wide, db, gx)
+
+
+@pytest.mark.parametrize("ch", [1, 3, 8])
+def test_backward_chunk_kernel_matches_plain(cuda, ch):
+    db, inst, gx = _dense_view(cuda, ch, seed=6)
+    tiles = forward_chunks(inst, db, gx)
+    g_color, g_depth, g_T = _cotangents(gx * gx, ch, cuda)
+    args = (inst, db, tiles, g_color, g_depth, g_T, gx)
+    got = backward_chunks(*args)
+    want = backward_chunks_plain(*args)
+    again = backward_chunks(*args)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, atol=1e-3, rtol=1e-2)
+    assert torch.equal(got, again)
+    assert not got[db.chunk_nvalid == 0].any()
+
+
+@pytest.mark.parametrize("ch", [3, 8])
+def test_render_pallas4_backward_on_cuda_counts_launches(cuda, ch):
+    scene = _scene(5000, cuda, capacity=8000)
+    cam = lookat_camera((0, 0, -4), (0, 0, 0), (0, 1, 0), 0.8, 0.8, 64, 64,
+                        device=cuda)
+    oc = None if ch == 3 else torch.rand((8000, ch), device=cuda)
+    _kernels.reset_launch_counts()
+    out = render(scene, cam, override_color=oc,
+                 impl="pallas4" if ch == 3 else None)
+    grads = torch.autograd.grad(out.color.sum() + out.depth.sum(),
+                                [scene.xyz, scene.opacity_raw])
+    torch.cuda.synchronize()
+    assert _kernels.launch_counts() == dict(
+        NO_LAUNCHES, forward_chunk=1, backward_chunk=1, rank_segment_sum=1)
+    assert out.color.shape == (64, 64, ch)
+    assert all(torch.isfinite(g).all() for g in grads)
+    assert float(grads[0].abs().sum()) > 0
+
+
+@pytest.mark.parametrize("ch", range(1, 9))
+def test_render_every_width_on_cuda(cuda, ch):
+    """Widths up to 3 take the sorted route (B1-B4), wider ones the dense
+    route (B5, B6, B4); each gives an image and finite gradients."""
+    scene = _scene(3000, cuda, seed=ch, capacity=4000)
+    cam = lookat_camera((0, 0, -4), (0, 0, 0), (0, 1, 0), 0.8, 0.8, 48, 48,
+                        device=cuda)
+    oc = torch.rand((4000, ch), device=cuda, requires_grad=True)
+    _kernels.reset_launch_counts()
+    out = render(scene, cam, override_color=oc)
+    grads = torch.autograd.grad(out.color.sum(), [scene.xyz, oc])
+    torch.cuda.synchronize()
+    if ch <= 3:
+        want = dict(NO_LAUNCHES, binning_key=1, forward_tile=1,
+                    backward_tile=1, rank_segment_sum=1)
+    else:
+        want = dict(NO_LAUNCHES, forward_chunk=1, backward_chunk=1,
+                    rank_segment_sum=1)
+    assert _kernels.launch_counts() == want
+    assert out.color.shape == (48, 48, ch) and out.color.max() > 0
+    assert all(torch.isfinite(g).all() for g in grads)
+    assert float(grads[1].abs().sum()) > 0
 
 
 def test_render_on_cuda_without_compiler_raises(cuda, monkeypatch, tmp_path):

@@ -87,10 +87,9 @@ def test_render_safe_doubles_budget():
     assert default_max_instances(4_000_000) == 128_000_000
 
 
-def test_render_under_autograd_raises():
-    """Under autograd, render gives every parameter a finite gradient.
-    Only the CUDA backward refuses anything (widths other than 3
-    channels), which a CPU tensor never reaches."""
+def test_render_under_autograd_gives_finite_gradients():
+    """Under autograd, render gives every parameter a finite gradient
+    (the plain versions of the backward kernels, on CPU tensors)."""
     scene = port_scene(random_scene(20, seed=0))
     cam = port_camera(make_camera(32, 32))
     out = render(scene, cam)

@@ -285,11 +285,11 @@ LOSS_KEYS = ("loss", "loss_l1", "loss_p", "loss_inject", "loss_anchor_color",
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_step(local_edit, with_inject):
+def _jax_step(local_edit, with_inject, impl):
     jopt = joptim.GaussianAdam(config=joptim.OptimConfig(**LRS))
     return jopt, jtrainer.make_train_step(
         jopt, jtrainer.LossWeights(**WEIGHTS), perceptual=jmsg_loss,
-        impl="pallas", local_edit=local_edit, with_inject=with_inject,
+        impl=impl, local_edit=local_edit, with_inject=with_inject,
         max_instances=8192)
 
 
@@ -302,16 +302,18 @@ def _train_inputs(seed):
     return js, cams, targets, inject
 
 
-def _run_both(local_edit, with_inject, steps, seed=11):
+def run_both(local_edit, with_inject, steps, seed=11, impl="pallas"):
+    """`steps` train steps of the JAX package and of the port, both on the
+    render route `impl`, from the same scene, cameras and targets."""
     js, cams, targets, inject = _train_inputs(seed)
-    jopt, jstep = _jax_step(local_edit, with_inject)
+    jopt, jstep = _jax_step(local_edit, with_inject, impl)
     jstate = jtrainer.init_train_state(js, jopt)
     cam_batch = jtrainer.stack_cameras(cams)
     topt = optim.GaussianAdam(config=optim.OptimConfig(**LRS))
     tstep = trainer.make_train_step(
         topt, trainer.LossWeights(**WEIGHTS),
         perceptual=multiscale_gradient_loss, local_edit=local_edit,
-        with_inject=with_inject, max_instances=8192)
+        with_inject=with_inject, impl=impl, max_instances=8192)
     tstate = trainer.init_train_state(port_scene(js), topt)
     tcams = [port_camera(c) for c in cams]
     kw_j = dict(inject_grad=jnp.asarray(inject)) if with_inject else {}
@@ -324,11 +326,10 @@ def _run_both(local_edit, with_inject, steps, seed=11):
     return jstate, tstate, history, grads
 
 
-@pytest.mark.parametrize("local_edit,with_inject", [(False, False),
-                                                    (True, True)],
-                         ids=["edit", "local_inject"])
-def test_train_step_matches_jax(local_edit, with_inject):
-    jstate, tstate, history, grads = _run_both(local_edit, with_inject, 1)
+def check_one_step(jstate, tstate, history, grads):
+    """One train step of the port against the JAX package's: the loss
+    terms to rtol 1e-4, the gradients at GRAD_TOL, Adam's first moment,
+    the parameters that moved for sure, and the densify statistics."""
     jm, tm = history[0]
     for k in LOSS_KEYS:
         np.testing.assert_allclose(float(tm[k]), float(jm[k]), rtol=1e-4,
@@ -362,8 +363,15 @@ def test_train_step_matches_jax(local_edit, with_inject):
     assert tstate.stats.xyz_gradient_accum.max() > 0
 
 
+@pytest.mark.parametrize("local_edit,with_inject", [(False, False),
+                                                    (True, True)],
+                         ids=["edit", "local_inject"])
+def test_train_step_matches_jax(local_edit, with_inject):
+    check_one_step(*run_both(local_edit, with_inject, 1))
+
+
 def test_train_trajectory_matches_jax():
-    _, tstate, history, _ = _run_both(False, False, 3, seed=13)
+    _, tstate, history, _ = run_both(False, False, 3, seed=13)
     for jm, tm in history:
         for k in LOSS_KEYS:
             np.testing.assert_allclose(float(tm[k]), float(jm[k]), rtol=1e-3,
