@@ -26,11 +26,13 @@ Phases, in order; any failure exits non-zero:
      device's idle share.
   6. the backward kernels against their plain versions, at full width:
      phase 3's color view and a seeded cotangent (g_color, g_depth,
-     g_final_T). Kernel B3's rank-ordered gradient rows must meet the JAX
-     suite's gradient tolerance (atol 1e-3, rtol 1e-2) against its plain
-     version, kernel B4's per-Gaussian sums 1e-5 of each column's RMS
-     against its plain version, and B3 followed by B4 must repeat
-     bitwise. Timed with CUDA events (median of 20 samples; the plain
+     g_final_T). First the rows per tile (max, mean, the longest tile's
+     rows before its largest n_contrib) and each B3 instance's registers,
+     spills, shared memory and blocks per SM. Kernel B3's rank-ordered
+     gradient rows must meet the JAX suite's gradient tolerance (atol
+     1e-3, rtol 1e-2) against its plain version, kernel B4's
+     per-Gaussian sums 1e-5 of each column's RMS against its plain
+     version, and B3 followed by B4 must repeat bitwise. Timed with CUDA events (median of 20 samples; the plain
      versions over 3), beside `torch.segment_reduce`, the one PyTorch
      call that computes B4's function.
   7. the train path: the edit train step at full width (the scene of
@@ -46,16 +48,18 @@ Phases, in order; any failure exits non-zero:
      gradients and parameters, and one step runs under torch.profiler.
   8. the dense route's kernels against their plain versions, at full
      width (run after phase 6, on phase 3's view, before phase 7 trains
-     the scene): the color view (ch = 3) and an 8-channel feature render
-     of the same view, binned by `dense_bin` at the default budget.
+     the scene): the color view (ch = 3) and an 8- and a 32-channel
+     feature render of the same view, binned by `dense_bin` at the
+     default budget; each B6 instance's registers, spills, shared memory
+     and blocks per SM are printed first.
      Kernel B5's images must meet the JAX suite's image bounds and its
      n_contrib agree on >= 99.9% of pixels; on the color view it must
      equal B2's n_contrib on every pixel and its color and final_T be
      within 2e-6 of B2's. Kernel B6's aligned rows must meet atol 1e-3 /
      rtol 1e-2 against its plain version; gathered into rank order and
      summed by B4 they must be within 3e-4 of each column's max of B3
-     then B4, and repeat bitwise. Timed as phase 6 times B3, beside
-     `dense_bin` and `sorted_bin`.
+     then B4, and repeat bitwise. Timed as phase 6 times B3 (B6 at each
+     width), beside `dense_bin` and `sorted_bin`.
   9. the train path through the dense route: the scene loaded again
      from the PLY, phase 7's optimizer, cameras and targets, 6 steps of
      `make_train_step(..., impl="pallas4")` with the launch counts zeroed
@@ -99,6 +103,7 @@ B3_OPS_CONTRIB = 50          # + per contributing pair: c_hat 8, w 1, prefix 2,
 TRAIN_STEPS = (10, 2)        # train steps before and after the densify step
 DENSE_STEPS = 6              # train steps on the dense route (phase 9)
 FEATURE_CH = 8               # channels of phase 8's feature render
+WIDE_CH = 32                 # and of its widest one (B5's and B6's limit)
 COLOR_SHIFT = (1.2, 0.8, 0.8)
 # configs/edit.yaml: learning-rate scalers and max_steps
 LR_SCALERS = dict(gs_lr_scaler=3.0, gs_final_lr_scaler=2.0,
@@ -197,6 +202,49 @@ def time_ms(fn, runs: int = RUNS, sample_ms: float = 2.0) -> float:
     torch.cuda.synchronize()
     reps = max(1, min(50, math.ceil(sample_ms / max(sample(1), 1e-3))))
     return statistics.median(sample(reps) for _ in range(runs))
+
+
+def kernel_resources(name: str, channels) -> None:
+    """Print each instance's registers, spills and static shared memory
+    from the compiler's report (`_kernels.BUILD_LOG`), and the dynamic
+    shared memory and blocks per SM of the instance taking each of
+    `channels`, from the kernel's `<name>_occupancy`."""
+    import re
+
+    from gaussianeditor_tpu_torch.ops import _kernels
+
+    inst = None
+    for line in _kernels.BUILD_LOG.get(name, "").splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            k = re.search(r"ILi(\d+)E", m.group(1))
+            inst = f"<{k.group(1)}>" if k else m.group(1)
+        elif "spill" in line or "registers" in line:
+            print(f"  {name}{inst}: {line.split(':', 1)[-1].strip()}")
+    for ch in channels:
+        smem, blocks = _kernels.occupancy(name, ch)
+        print(f"  {name} at ch {ch}: {smem} bytes of dynamic shared memory, "
+              f"{blocks} blocks of 256 threads per SM", flush=True)
+
+
+def row_stats(bounds, n_contrib, label: str, per: int = 1) -> dict:
+    """Rows per tile (max, mean) and the longest tile's rows before its
+    largest n_contrib: the rows the backward walks (`per` rows per unit
+    of `bounds`: 128 for chunks). Printed and returned."""
+    cnt = (bounds[1:] - bounds[:-1]).long() * per
+    max_nc = n_contrib.long().max(dim=1).values
+    out = dict(rows_max=int(cnt.max()), rows_mean=float(cnt.float().mean()),
+               longest_tile_rows_before_nc=int(max_nc[int(cnt.argmax())]),
+               max_nc_max=int(max_nc.max()),
+               max_nc_mean=float(max_nc.float().mean()),
+               rows_walked=int(max_nc.sum()), rows_total=int(cnt.sum()))
+    print(f"rows per tile, {label}: max {out['rows_max']}, mean "
+          f"{out['rows_mean']:.1f}; the longest tile's rows before its "
+          f"largest n_contrib {out['longest_tile_rows_before_nc']}; a tile's "
+          f"largest n_contrib: max {out['max_nc_max']}, mean "
+          f"{out['max_nc_mean']:.1f}; rows walked {out['rows_walked']} of "
+          f"{out['rows_total']}", flush=True)
+    return out
 
 
 def check_kernels(proc, gx: int, gy: int, budget: int, label: str,
@@ -511,6 +559,8 @@ def phase_backward(view) -> list:
     b_incl, tt = sb.b_incl, proc.tiles_touched
 
     # --- B3 ---
+    row_stats(sb.tile_bounds, tiles.n_contrib, "sorted route")
+    kernel_resources("backward_tile", (1, 2, 3))
     rows = backward_tiles(*args)
     rows_plain = backward_tiles_plain(*args)
     torch.cuda.synchronize()
@@ -609,6 +659,7 @@ def phase_dense(view, scene, cam, budget: int) -> list:
         forward_chunks_plain,
         pack_instances,
         rows_by_rank,
+        tile_chunk_bounds,
     )
     from gaussianeditor_tpu_torch.ops.render import preprocess_scene
     from gaussianeditor_tpu_torch.ops.tile_composite import backward_tiles
@@ -623,8 +674,11 @@ def phase_dense(view, scene, cam, budget: int) -> list:
     tt = proc.tiles_touched
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
     feat = torch.rand((C, FEATURE_CH), generator=gen, device="cuda")
+    wide = torch.rand((C, WIDE_CH), generator=gen, device="cuda")
     with torch.no_grad():
         feat_proc = preprocess_scene(scene, cam, override_color=feat)
+        wide_proc = preprocess_scene(scene, cam, override_color=wide)
+    kernel_resources("backward_chunk", (1, 3, FEATURE_CH, WIDE_CH))
 
     with torch.no_grad():
         dense_ms = time_ms(lambda: dense_bin(proc, gx, gx, budget))
@@ -634,7 +688,8 @@ def phase_dense(view, scene, cam, budget: int) -> list:
           f"read included)", flush=True)
 
     res = {}
-    for label, p in (("color view", proc), ("feature view", feat_proc)):
+    for label, p in (("color view", proc), ("feature view", feat_proc),
+                     ("wide feature view", wide_proc)):
         ch = p.color.shape[1]
         with torch.no_grad():
             db = dense_bin(p, gx, gx, budget)
@@ -682,11 +737,19 @@ def phase_dense(view, scene, cam, budget: int) -> list:
               f"rtol 1e-2; rows max |.| {float(grows_plain.abs().max()):.4g}; "
               f"kernel {b6_ms:.4f} ms", flush=True)
         assert bool(ok.all()), f"B6 {label}: rows differ from plain"
-        res[ch] = dict(db=db, inst=inst, tk=tk, tp=tp, grows=grows, cot=cot,
+        if ch == 3:
+            row_stats(tile_chunk_bounds(db), tk.n_contrib,
+                      "dense route (chunks)", per=128)
+        res[ch] = dict(db=db, inst=inst, tk=tk, grows=grows, cot=cot,
                        pairs=int(evaluated.sum()),
                        contrib=int(contributed.sum()), b5_err=b5_err,
                        b5_ms=b5_ms, b6_err=b6_err, b6_ms=b6_ms)
-    assert set(res) == {3, FEATURE_CH}
+        if ch != 3:     # the color view's tensors are used below
+            del res[ch]["db"], res[ch]["inst"], res[ch]["tk"], res[ch]["grows"]
+        del tp, grows_plain
+    assert set(res) == {3, FEATURE_CH, WIDE_CH}
+    print("B6 backward_chunk by width: " + ", ".join(
+        f"ch {k} {res[k]['b6_ms']:.4f} ms" for k in sorted(res)), flush=True)
 
     # --- B5 against B2, the color view: the same rows in the same order ---
     r = res[3]
@@ -748,8 +811,10 @@ def phase_dense(view, scene, cam, budget: int) -> list:
         b_ops = 1e3 * ops / H100_FP32_PER_S
         b_bytes = 1e3 * nbytes / H100_BYTES_PER_S
         by = "operations" if b_ops >= b_bytes else "bytes"
+        key = name[:2].lower() + "_ms"
         print(f"{name}, color view: kernel {ms:.4f} ms (ch {FEATURE_CH}: "
-              f"{res[FEATURE_CH][name[:2].lower() + '_ms']:.4f} ms), plain "
+              f"{res[FEATURE_CH][key]:.4f} ms, ch {WIDE_CH}: "
+              f"{res[WIDE_CH][key]:.4f} ms), plain "
               f"{plain_ms:.4f} ms, bound {max(b_ops, b_bytes):.4f} ms ({by}; "
               f"ops {b_ops:.4f}, bytes {b_bytes:.4f}, {nbytes} B)", flush=True)
         out.append(dict(name=name, route="cuda",
@@ -757,7 +822,8 @@ def phase_dense(view, scene, cam, budget: int) -> list:
                         replaces=f"gaussianeditor_tpu/ops/pallas_composite.py:{line}",
                         max_abs_err=err, ms=ms, plain_ms=plain_ms,
                         bound_ms=max(b_ops, b_bytes), bound_by=by,
-                        library_ms=None))
+                        library_ms=None,
+                        ms_by_ch={k: res[k][key] for k in sorted(res)}))
     print(f"evaluated pairs {r['pairs']}, contributing {r['contrib']}, rows "
           f"before n_contrib {sum_nc}", flush=True)
     return out

@@ -9,55 +9,44 @@
 // inside the tile's block: block t walks its chunks [bounds[t],
 // bounds[t+1]) of inst [NC, 7 + ch, 128] in order, carrying T and the
 // prefix in registers, and rebuilds T with kernel B5's arithmetic (T *= 1
-// - alpha), so the gating agrees with the forward's n_contrib. For the
-// row at tile position pos and pixel p, gated by pos < n_contrib[p],
-// power <= 0 and alpha >= 1/255 (kernel B3's math):
-//   c_hat  = g_color . color_i + g_depth depth_i
-//   prefix += alpha T c_hat                     (inclusive)
-//   dpower  = amc (T c_hat - (S_total - prefix) / (1 - alpha)),
-//             S_total = g_color . color + g_depth depth + g_T final_T,
-//             amc = alpha if alpha_raw < 0.99 else 0 (the alpha cap
-//             passes no gradient to power or opacity; color gets one)
-// and the pixel's partials of the row's gradient are
-//   d mean2d = -dpower (a dx + b dy, c dy + b dx)
-//   d conic  = -dpower (dx^2 / 2, dx dy, dy^2 / 2)
-//   d opacity: dpower (times 1 / opacity once summed)
-//   d color  = g_color alpha T,  d depth = g_depth alpha T.
-// Each row's 7 + ch sums over the 256 pixels are taken in a fixed order:
-// a warp shuffle tree, then the 8 warps in index order. No atomics, so
-// the rows repeat bitwise. Output: the aligned rows [NC, 7 + ch, 128],
-// the layout the TPU kernel emits; the caller gathers them into pre-sort
-// rank order for kernel B4. Lanes at or past n_valid, rows past the
-// tile's largest n_contrib (the TPU's `active` gate), and the dead chunks
-// past the last tile (written by the blocks after the tiles') are zeros.
+// - alpha), so the gating agrees with the forward's n_contrib. The row
+// math, the sums over the tile's pixels as TF32 tensor-core products of
+// pixel moments, and the epilogue are those of composite_backward.cuh,
+// shared with kernel B3; a row at tile position pos is live for pixel p
+// while pos < n_contrib[p].
+//
+// Each chunk [7 + ch, 128] is one contiguous block of inst: one thread
+// copies it to shared memory with a 1-D bulk copy (cp.async.bulk) that
+// completes on an mbarrier, double-buffered, so the next chunk loads
+// while this one is walked in batches of kRows rows. Output: the aligned
+// rows [NC, 7 + ch, 128], the layout the TPU kernel emits; the caller
+// gathers them into pre-sort rank order for kernel B4. Lanes at or past
+// n_valid, rows past the tile's largest n_contrib (the TPU's `active`
+// gate; zeros without the products) and the dead chunks past the last
+// tile (written by the blocks after the tiles') are zeros.
 //
 // Bound: bytes at the main path's shapes, with the operations close
 // behind, as for B3: the instance rows read and the gradient rows written
 // are each 4 (7 + ch) bytes a lane, and each (pixel, row) pair before the
 // pixel's n_contrib costs the forward's 19 flops to rebuild alpha, each
-// contributing pair about 50 more, the sum over the tile included.
-// Design: a chunk's live rows are staged in shared memory with coalesced
-// loads, then walked in batches of 32 (16 for the 32-channel instance) so
-// that the warp partials fit in shared memory; a warp whose 32 pixels all
-// skip a row skips its shuffles. ch 1 and 3 have their own instances;
-// wider renders take an instance sized for 8 or for 32 channels.
+// contributing pair about 50 more. ch 1 and 3 have their own instances;
+// wider renders take an instance sized for 8 or for 32 channels (the
+// gfeat product is then 16 or 40 columns wide).
 
-#include <cuda_runtime.h>
+#include "composite_backward.cuh"
 
 namespace {
 
-constexpr int kTile = 16;
-constexpr int kPx = kTile * kTile;  // threads per block: one per pixel
-constexpr int kWarps = kPx / 32;
-constexpr int kChunk = 128;         // lanes of a chunk
-constexpr int kZeroBlocks = 32;     // blocks that zero the dead chunks
-constexpr float kAlphaMax = 0.99f;
-constexpr float kAlphaMin = 1.0f / 255.0f;
+using namespace composite_backward;
+
+constexpr int kChunk = 128;      // lanes of a chunk
+constexpr int kZeroBlocks = 32;  // blocks that zero the dead chunks
 
 // CH: the channel count when it is 1 or 3, else the most channels the
 // instance takes (ch <= CH at run time)
 template <int CH>
-__global__ void __launch_bounds__(kPx) backward_chunk_kernel(
+__global__ void __launch_bounds__(kPx, CH <= 8 ? kMinBlocks : 1)
+    backward_chunk_kernel(
     const int* __restrict__ bounds, const int* __restrict__ nvalid,
     const int* __restrict__ offset, const float* __restrict__ inst,
     int num_chunks, int num_tiles, int grid_x, int ch,
@@ -65,14 +54,14 @@ __global__ void __launch_bounds__(kPx) backward_chunk_kernel(
     const float* __restrict__ g_T, const float* __restrict__ color,
     const float* __restrict__ depth, const float* __restrict__ final_T,
     const int* __restrict__ n_contrib, float* __restrict__ out) {
-  constexpr int kBatch = CH <= 8 ? 32 : 16;  // rows summed per barrier
-  constexpr int GM = 7 + CH;                 // most gradient fields
+  constexpr int NF = feature_cols(CH);
+  using L = Layout<NF>;
   const int nch = CH <= 3 ? CH : ch;
   const int P = 7 + nch;  // instance fields
   const int G = 7 + nch;  // gradient fields: 2 + 3 + 1 + ch + 1
-  __shared__ float rows[7 + CH][kChunk];
-  __shared__ float part[kBatch][kWarps][GM];
+  extern __shared__ __align__(16) float smem[];
   __shared__ int warp_nc[kWarps];
+  __shared__ __align__(8) uint64_t bar[2];
 
   const int t = blockIdx.x;
   const int p = threadIdx.x;
@@ -91,122 +80,84 @@ __global__ void __launch_bounds__(kPx) backward_chunk_kernel(
   }
 
   const size_t o = (size_t)t * kPx + p;
-  const float px = (float)((t % grid_x) * kTile + p % kTile);
-  const float py = (float)((t / grid_x) * kTile + p / kTile);
+  const int tx = t % grid_x, ty = t / grid_x;
+  const float px = (float)(tx * kTile + p % kTile);
+  const float py = (float)(ty * kTile + p / kTile);
 
-  float gc[CH];
-  float S = g_T[o] * final_T[o];
-#pragma unroll
-  for (int c = 0; c < CH; ++c) {
-    gc[c] = 0.0f;
-    if (c < nch) {
-      gc[c] = g_color[o * nch + c];
-      S += gc[c] * color[o * nch + c];
-    }
+  if (p == 0) {
+    mbar_init(&bar[0]);
+    mbar_init(&bar[1]);
+    mbar_init_fence();
   }
-  const float gd = g_depth[o];
-  S += gd * depth[o];
-  const int nc = n_contrib[o];
+  PixelState<CH> px_state;
+  px_state.load(o, nch, g_color, g_depth, g_T, color, depth, final_T,
+                n_contrib);
+  // (its barrier also publishes the mbarriers' initialisation)
+  const int max_nc = block_max_nc(px_state.nc, warp_nc);
 
-  const int wmax = __reduce_max_sync(0xffffffffu, nc);
-  if (lane == 0) warp_nc[warp] = wmax;
-  __syncthreads();
-  int max_nc = 0;
-#pragma unroll
-  for (int w = 0; w < kWarps; ++w) max_nc = max(max_nc, warp_nc[w]);
+  float* dw = smem + L::kDW + warp * L::kWarpDW;
+  float* gw = smem + L::kG + warp * L::kWarpG;
+  float* stage = smem + L::kStage;  // [2][7 + CH][kChunk]
+  store_features<CH, NF>(gw, lane, px_state.gc, px_state.gd, nch);
+  __syncwarp();
 
+  // rows of chunk c that any pixel of the tile can take: uniform over
+  // the block, and positive for a prefix of the tile's chunks
+  auto live_rows = [&](int c) {
+    return max(0, min(nvalid[c], max_nc - offset[c]));
+  };
+  const uint32_t chunk_bytes = (uint32_t)(P * kChunk * sizeof(float));
+  auto load_chunk = [&](int c, int buf) {
+    bulk_load(stage + buf * (7 + CH) * kChunk,
+              inst + (size_t)c * P * kChunk, chunk_bytes, &bar[buf]);
+  };
+
+  const int c0 = bounds[t];
+  const int c1 = bounds[t + 1];
   float T = 1.0f;
   float prefix = 0.0f;
-  const int c1 = bounds[t + 1];
-  for (int c = bounds[t]; c < c1; ++c) {
-    const int off = offset[c];
-    // rows any pixel of the tile can take: uniform over the block
-    const int lim = max(0, min(nvalid[c], max_nc - off));
+  const int i_row = p / kJ;  // the row this thread finishes
+  const int j_row = p - i_row * kJ;
+  int loaded = 0;      // chunks staged so far
+  int prefetched = -1; // the chunk already on its way to the next buffer
+  for (int c = c0; c < c1; ++c) {
+    const int lim = live_rows(c);
     float* dst = out + (size_t)c * G * kChunk;
     if (lim > 0) {
-      const float* src = inst + (size_t)c * P * kChunk;
-      for (int idx = p; idx < P * kChunk; idx += kPx) {
-        const int l = idx % kChunk;
-        if (l < lim) rows[idx / kChunk][l] = src[idx];
+      // both buffers were last read before the previous barrier
+      const int buf = loaded & 1;
+      if (p == 0 && prefetched != c) load_chunk(c, buf);
+      if (c + 1 < c1 && live_rows(c + 1) > 0) {
+        if (p == 0) load_chunk(c + 1, buf ^ 1);
+        prefetched = c + 1;
       }
-      __syncthreads();
-      for (int base = 0; base < lim; base += kBatch) {
-        const int cnt = min(kBatch, lim - base);
-        for (int i = 0; i < cnt; ++i) {
-          const int r = base + i;
-          float v[GM];
-#pragma unroll
-          for (int k = 0; k < GM; ++k) v[k] = 0.0f;
-          bool on = false;
-          if (off + r < nc) {
-            // B5's arithmetic, so that the skips agree with the forward's
-            const float dx = rows[0][r] - px;
-            const float dy = rows[1][r] - py;
-            const float power =
-                -0.5f * (rows[2][r] * dx * dx + rows[4][r] * dy * dy) -
-                rows[3][r] * dx * dy;
-            if (!(power > 0.0f)) {
-              const float alpha_raw = rows[5][r] * expf(power);
-              const float alpha = fminf(kAlphaMax, alpha_raw);
-              if (!(alpha < kAlphaMin)) {
-                on = true;
-                const float w = alpha * T;
-                float c_hat = gd * rows[6][r];
-#pragma unroll
-                for (int k = 0; k < CH; ++k)
-                  if (k < nch) c_hat += gc[k] * rows[7 + k][r];
-                prefix += w * c_hat;
-                const float f = 1.0f - alpha;
-                const float amc = alpha_raw < kAlphaMax ? alpha : 0.0f;
-                const float dpower = amc * (T * c_hat - (S - prefix) / f);
-                v[0] = -dpower * (rows[2][r] * dx + rows[3][r] * dy);
-                v[1] = -dpower * (rows[4][r] * dy + rows[3][r] * dx);
-                v[2] = -0.5f * dpower * dx * dx;
-                v[3] = -dpower * dx * dy;
-                v[4] = -0.5f * dpower * dy * dy;
-                v[5] = dpower;
-                // indices known at compile time keep v in registers
-#pragma unroll
-                for (int k = 0; k <= CH; ++k) {
-                  if (k == nch)
-                    v[6 + k] = gd * w;
-                  else if (k < nch)
-                    v[6 + k] = gc[k < CH ? k : 0] * w;
-                }
-                T = T * (1.0f - alpha);
-              }
-            }
-          }
-          if (__any_sync(0xffffffffu, on)) {
-#pragma unroll
-            for (int k = 0; k < GM; ++k) {
-              if (k < G) {
-#pragma unroll
-                for (int s = 16; s > 0; s >>= 1)
-                  v[k] += __shfl_down_sync(0xffffffffu, v[k], s);
-              }
-            }
-          }
-          if (lane == 0) {
-#pragma unroll
-            for (int k = 0; k < GM; ++k)
-              if (k < G) part[i][warp][k] = v[k];
-          }
+      mbar_wait(&bar[buf], (loaded >> 1) & 1);
+      ++loaded;
+      const float* f = stage + buf * (7 + CH) * kChunk;
+      const int off = offset[c];
+      for (int base = 0; base < lim; base += kRows) {
+        const int cnt = min(kRows, lim - base);
+        for (int i = 0; i < kRows; ++i) {
+          float dpower, w;
+          walk_row<CH>(f, kChunk, base + i,
+                       i < cnt && off + base + i < px_state.nc, nch,
+                       px_state.gc, px_state.gd, px_state.S, px, py, T,
+                       prefix, dpower, w);
+          dw[i * kLd + lane] = dpower;
+          dw[(kRows + i) * kLd + lane] = w;
         }
+        __syncwarp();
+        warp_products<NF>(dw, gw, lane);
         __syncthreads();
-        for (int idx = p; idx < cnt * G; idx += kPx) {
-          const int i = idx / G;
-          const int k = idx - i * G;
-          float s = 0.0f;
-#pragma unroll
-          for (int w = 0; w < kWarps; ++w) s += part[i][w][k];
-          if (k == 5) {
-            const float op = rows[5][base + i];
-            s *= op > 0.0f ? 1.0f / op : 0.0f;
-          }
-          dst[(size_t)k * kChunk + base + i] = s;
-        }
-        // the next batch overwrites part, the next chunk rows
+        const int r = base + i_row;
+        finish_row<NF>(smem, i_row, j_row, nch, i_row < cnt, f[r],
+                       f[kChunk + r], f[2 * kChunk + r], f[3 * kChunk + r],
+                       f[4 * kChunk + r], f[5 * kChunk + r], tx * kTile,
+                       ty * kTile, [&](int k, float v) {
+                         dst[(size_t)k * kChunk + r] = v;
+                       });
+        // D, W, the partials and (after the chunk's last batch) its
+        // staging buffer are free again
         __syncthreads();
       }
     }
@@ -214,6 +165,39 @@ __global__ void __launch_bounds__(kPx) backward_chunk_kernel(
     for (int idx = p; idx < G * kChunk; idx += kPx)
       if (idx % kChunk >= lim) dst[idx] = 0.0f;
   }
+}
+
+template <int CH>
+size_t smem_bytes() {
+  return Layout<feature_cols(CH)>::bytes((7 + CH) * kChunk);
+}
+
+template <int CH>
+cudaError_t launch(const dim3& grid, cudaStream_t s, const void* bounds,
+                   const void* nvalid, const void* offset, const void* inst,
+                   int num_chunks, int num_tiles, int grid_x, int ch,
+                   const void* g_color, const void* g_depth, const void* g_T,
+                   const void* color, const void* depth, const void* final_T,
+                   const void* n_contrib, void* out) {
+  const size_t bytes = smem_bytes<CH>();
+  cudaError_t e = set_smem(backward_chunk_kernel<CH>, bytes);
+  if (e != cudaSuccess) return e;
+  backward_chunk_kernel<CH><<<grid, kPx, bytes, s>>>(
+      (const int*)bounds, (const int*)nvalid, (const int*)offset,
+      (const float*)inst, num_chunks, num_tiles, grid_x, ch,
+      (const float*)g_color, (const float*)g_depth, (const float*)g_T,
+      (const float*)color, (const float*)depth, (const float*)final_T,
+      (const int*)n_contrib, (float*)out);
+  return cudaGetLastError();
+}
+
+template <int CH>
+cudaError_t occupancy(int* smem, int* blocks) {
+  *smem = (int)smem_bytes<CH>();
+  cudaError_t e = set_smem(backward_chunk_kernel<CH>, *smem);
+  if (e != cudaSuccess) return e;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, backward_chunk_kernel<CH>, kPx, (size_t)*smem);
 }
 
 }  // namespace
@@ -228,25 +212,39 @@ extern "C" int backward_chunk(const void* bounds, const void* nvalid,
   if (num_tiles <= 0 || num_chunks <= 0 || ch < 1 || ch > 32)
     return (int)cudaErrorInvalidValue;
   // one block per tile, then the blocks that zero the dead chunks
-  const dim3 grid(num_tiles + kZeroBlocks), block(kPx);
+  const dim3 grid(num_tiles + kZeroBlocks);
   cudaStream_t s = (cudaStream_t)stream;
-#define LAUNCH(CH)                                                           \
-  backward_chunk_kernel<CH><<<grid, block, 0, s>>>(                          \
-      (const int*)bounds, (const int*)nvalid, (const int*)offset,            \
-      (const float*)inst, num_chunks, num_tiles, grid_x, ch,                 \
-      (const float*)g_color, (const float*)g_depth, (const float*)g_T,       \
-      (const float*)color, (const float*)depth, (const float*)final_T,       \
-      (const int*)n_contrib, (float*)out)
+#define LAUNCH(CH)                                                       \
+  launch<CH>(grid, s, bounds, nvalid, offset, inst, num_chunks, num_tiles, \
+             grid_x, ch, g_color, g_depth, g_T, color, depth, final_T,    \
+             n_contrib, out)
+  cudaError_t e;
   if (ch == 1)
-    LAUNCH(1);
+    e = LAUNCH(1);
   else if (ch == 3)
-    LAUNCH(3);
+    e = LAUNCH(3);
   else if (ch <= 8)
-    LAUNCH(8);
+    e = LAUNCH(8);
   else
-    LAUNCH(32);
+    e = LAUNCH(32);
 #undef LAUNCH
-  return (int)cudaGetLastError();
+  return (int)e;
+}
+
+// Dynamic shared memory of the instance that takes ch channels and the
+// blocks of it that fit on one SM; returns a CUDA error code
+extern "C" int backward_chunk_occupancy(int ch, int* smem, int* blocks) {
+  if (ch < 1 || ch > 32) return (int)cudaErrorInvalidValue;
+  cudaError_t e;
+  if (ch == 1)
+    e = occupancy<1>(smem, blocks);
+  else if (ch == 3)
+    e = occupancy<3>(smem, blocks);
+  else if (ch <= 8)
+    e = occupancy<8>(smem, blocks);
+  else
+    e = occupancy<32>(smem, blocks);
+  return (int)e;
 }
 
 extern "C" const char* backward_chunk_error_string(int code) {

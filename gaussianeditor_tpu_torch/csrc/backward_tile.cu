@@ -6,53 +6,42 @@
 // tile's depth-sorted rows [bounds[t], bounds[t+1]) of the field-major
 // payload [7 + ch, n] front to back, as kernel B2 does, and rebuilds each
 // pixel's transmittance T with B2's own arithmetic (T *= 1 - alpha), so
-// the gating agrees with the forward's n_contrib. For row i and pixel p,
-// gated by pos < n_contrib[p], power <= 0 and alpha >= 1/255:
-//   c_hat  = g_color . color_i + g_depth depth_i
-//   prefix += alpha T c_hat                     (inclusive)
-//   suffix  = S_total - prefix, S_total = g_acc . acc + g_T final_T
-//   dpower  = amc (T c_hat - suffix / (1 - alpha)),
-//             amc = alpha if alpha_raw < 0.99 else 0 (the alpha cap passes
-//             no gradient to power or opacity; color still gets one)
-// and the pixel's partials of the row's gradient are
-//   d mean2d = -dpower (a dx + b dy, c dy + b dx)
-//   d conic  = -dpower (dx^2 / 2, dx dy, dy^2 / 2)
-//   d opacity: dpower (times 1 / opacity once summed)
-//   d color  = g_color alpha T,  d depth = g_depth alpha T.
-// The suffix is S_total minus the running prefix, S_total from the
-// forward's saved acc and final_T (pallas_composite.py:681-683, :757).
+// the gating agrees with the forward's n_contrib. The suffix is S_total
+// minus the running prefix, S_total from the forward's saved acc and
+// final_T (pallas_composite.py:681-683, :757). The row math, the sums
+// over the tile's pixels as TF32 tensor-core products of pixel moments,
+// and the epilogue are those of composite_backward.cuh, shared with
+// kernel B6.
 //
-// Each row's 7 + ch sums over the 256 pixels are taken in a fixed order:
-// a warp shuffle tree, then the 8 warps in index order. No atomics, so
-// the result repeats bitwise. The row goes to column rank[i] of the
+// Each batch of kRows rows is staged in shared memory by cp.async (4
+// bytes a copy: a tile's rows start anywhere, so 16-byte copies would
+// not be aligned), double-buffered, so the next batch loads while this
+// one is walked and multiplied. A row goes to column rank[i] of the
 // output [7 + ch, n] (rank is a permutation, so each column is written
-// once), where kernel B4 sums each Gaussian's contiguous ranks. Rows at
-// or past the tile's largest n_contrib are written as zeros; one extra
-// block writes zeros for the sorted rows past the last tile.
+// once), where kernel B4 sums each Gaussian's contiguous ranks. `out`
+// must hold zeros on entry (the wrapper fills it, in coalesced stores):
+// the kernel writes only the rows of the batches it walks, so the rows
+// past a tile's largest n_contrib and past the last tile stay zero
+// without one scattered store each.
 //
 // Bound: bytes at the main path's shapes, with the operations close
 // behind. The payload read and the rows written are each 4 (7 + ch)
 // bytes a row, the rank 8; each (pixel, row) pair before the pixel's
 // n_contrib costs the forward's 19 flops to rebuild alpha, and each
-// contributing pair about 50 more, the sum over the tile included. The
-// TPU kernel forms the pixel moments with matrix-unit products in
-// tile-local coordinates; here each pixel's partials are summed in the
-// block, the same function, and a warp whose 32 pixels all skip a row
-// skips its shuffles.
+// contributing pair about 50 more. What the design does about it: the
+// per-row sums over the tile's pixels cost two shared-memory stores per
+// pair and tensor-core products, with two block barriers per batch of
+// 32 rows, and the zero rows (1.26M of 2.07M at 512x512) cost one
+// coalesced fill instead of a scattered store each.
 
-#include <cuda_runtime.h>
+#include "composite_backward.cuh"
 
 namespace {
 
-constexpr int kTile = 16;
-constexpr int kPx = kTile * kTile;  // threads per block: one per pixel
-constexpr int kWarps = kPx / 32;
-constexpr int kBatch = 32;          // rows staged through shared memory
-constexpr float kAlphaMax = 0.99f;
-constexpr float kAlphaMin = 1.0f / 255.0f;
+using namespace composite_backward;
 
 template <int CH>
-__global__ void __launch_bounds__(kPx) backward_tile_kernel(
+__global__ void __launch_bounds__(kPx, kMinBlocks) backward_tile_kernel(
     const int* __restrict__ bounds, const float* __restrict__ payload,
     const long long* __restrict__ rank, long long n, int num_tiles,
     int grid_x, const float* __restrict__ g_color,
@@ -61,9 +50,9 @@ __global__ void __launch_bounds__(kPx) backward_tile_kernel(
     const float* __restrict__ final_T, const int* __restrict__ n_contrib,
     float* __restrict__ out) {
   constexpr int P = 7 + CH;  // payload fields
-  constexpr int G = 7 + CH;  // gradient fields: 2 + 3 + 1 + CH + 1
-  __shared__ float rows[P][kBatch];
-  __shared__ float part[kBatch][kWarps][G];
+  constexpr int NF = feature_cols(CH);
+  using L = Layout<NF>;
+  extern __shared__ __align__(16) float smem[];
   __shared__ int warp_nc[kWarps];
 
   const int t = blockIdx.x;
@@ -71,126 +60,101 @@ __global__ void __launch_bounds__(kPx) backward_tile_kernel(
   const int lane = p & 31;
   const int warp = p >> 5;
 
-  if (t == num_tiles) {
-    // sorted rows past the last tile (dead ranks): zero rows
-    for (long long i = bounds[num_tiles] + p; i < n; i += kPx) {
-      const long long r = rank[i];
-#pragma unroll
-      for (int k = 0; k < G; ++k) out[(size_t)k * n + r] = 0.0f;
-    }
-    return;
-  }
-
   const int start = bounds[t];
   const int end = bounds[t + 1];
   const size_t o = (size_t)t * kPx + p;
-  const float px = (float)((t % grid_x) * kTile + p % kTile);
-  const float py = (float)((t / grid_x) * kTile + p / kTile);
+  const int tx = t % grid_x, ty = t / grid_x;
+  const float px = (float)(tx * kTile + p % kTile);
+  const float py = (float)(ty * kTile + p / kTile);
 
-  float gc[CH];
-  float S = g_T[o] * final_T[o];
-#pragma unroll
-  for (int c = 0; c < CH; ++c) {
-    gc[c] = g_color[o * CH + c];
-    S += gc[c] * color[o * CH + c];
-  }
-  const float gd = g_depth[o];
-  S += gd * depth[o];
-  const int nc = n_contrib[o];
-
-  const int wmax = __reduce_max_sync(0xffffffffu, nc);
-  if (lane == 0) warp_nc[warp] = wmax;
-  __syncthreads();
-  int max_nc = 0;
-#pragma unroll
-  for (int w = 0; w < kWarps; ++w) max_nc = max(max_nc, warp_nc[w]);
+  PixelState<CH> px_state;
+  px_state.load(o, CH, g_color, g_depth, g_T, color, depth, final_T,
+                n_contrib);
+  const int max_nc = block_max_nc(px_state.nc, warp_nc);
   const int active_end = start + max_nc;
+
+  float* dw = smem + L::kDW + warp * L::kWarpDW;
+  float* gw = smem + L::kG + warp * L::kWarpG;
+  float* stage = smem + L::kStage;  // [2][P][kRows]
+  store_features<CH, NF>(gw, lane, px_state.gc, px_state.gd, CH);
+
+  auto stage_rows = [&](int base, int buf) {
+    float* dst = stage + buf * P * kRows;
+    const int cnt = min(kRows, end - base);
+    for (int idx = p; idx < P * kRows; idx += kPx) {
+      const int f = idx / kRows;
+      const int r = idx - f * kRows;
+      if (r < cnt) cp_async4(dst + idx, payload + (size_t)f * n + base + r);
+    }
+    cp_async_commit();
+  };
+  if (start < active_end) stage_rows(start, 0);
+  cp_async_wait_all();
+  __syncthreads();
 
   float T = 1.0f;
   float prefix = 0.0f;
-  for (int base = start; base < end; base += kBatch) {
-    const int cnt = min(kBatch, end - base);
-    if (base < active_end) {  // uniform over the block
-      if (p < cnt) {
-#pragma unroll
-        for (int f = 0; f < P; ++f)
-          rows[f][p] = payload[(size_t)f * n + base + p];
-      }
-      __syncthreads();
-      for (int i = 0; i < cnt; ++i) {
-        float v[G];
-#pragma unroll
-        for (int k = 0; k < G; ++k) v[k] = 0.0f;
-        bool on = false;
-        if (base - start + i < nc) {
-          // B2's arithmetic, so that the skips agree with the forward's
-          const float dx = rows[0][i] - px;
-          const float dy = rows[1][i] - py;
-          const float power =
-              -0.5f * (rows[2][i] * dx * dx + rows[4][i] * dy * dy) -
-              rows[3][i] * dx * dy;
-          if (!(power > 0.0f)) {
-            const float alpha_raw = rows[5][i] * expf(power);
-            const float alpha = fminf(kAlphaMax, alpha_raw);
-            if (!(alpha < kAlphaMin)) {
-              on = true;
-              const float w = alpha * T;
-              float c_hat = gd * rows[6][i];
-#pragma unroll
-              for (int c = 0; c < CH; ++c) c_hat += gc[c] * rows[7 + c][i];
-              prefix += w * c_hat;
-              const float f = 1.0f - alpha;
-              const float amc = alpha_raw < kAlphaMax ? alpha : 0.0f;
-              const float dpower = amc * (T * c_hat - (S - prefix) / f);
-              v[0] = -dpower * (rows[2][i] * dx + rows[3][i] * dy);
-              v[1] = -dpower * (rows[4][i] * dy + rows[3][i] * dx);
-              v[2] = -0.5f * dpower * dx * dx;
-              v[3] = -dpower * dx * dy;
-              v[4] = -0.5f * dpower * dy * dy;
-              v[5] = dpower;
-#pragma unroll
-              for (int c = 0; c < CH; ++c) v[6 + c] = gc[c] * w;
-              v[6 + CH] = gd * w;
-              T = T * (1.0f - alpha);
-            }
-          }
-        }
-        if (__any_sync(0xffffffffu, on)) {
-#pragma unroll
-          for (int k = 0; k < G; ++k) {
-#pragma unroll
-            for (int off = 16; off > 0; off >>= 1)
-              v[k] += __shfl_down_sync(0xffffffffu, v[k], off);
-          }
-        }
-        if (lane == 0) {
-#pragma unroll
-          for (int k = 0; k < G; ++k) part[i][warp][k] = v[k];
-        }
-      }
-      __syncthreads();
-      for (int idx = p; idx < cnt * G; idx += kPx) {
-        const int i = idx / G;
-        const int k = idx - i * G;
-        float s = 0.0f;
-#pragma unroll
-        for (int w = 0; w < kWarps; ++w) s += part[i][w][k];
-        if (k == 5) {
-          const float op = rows[5][i];
-          s *= op > 0.0f ? 1.0f / op : 0.0f;
-        }
-        out[(size_t)k * n + rank[base + i]] = s;
-      }
-    } else {
-      for (int idx = p; idx < cnt * G; idx += kPx) {
-        const int i = idx / G;
-        const int k = idx - i * G;
-        out[(size_t)k * n + rank[base + i]] = 0.0f;
-      }
+  const int i_row = p / kJ;  // the row this thread finishes
+  const int j_row = p - i_row * kJ;
+  int buf = 0;
+  for (int base = start; base < active_end; base += kRows, buf ^= 1) {
+    const int cnt = min(kRows, end - base);
+    if (base + kRows < active_end) stage_rows(base + kRows, buf ^ 1);
+    const float* f = stage + buf * P * kRows;
+    for (int i = 0; i < kRows; ++i) {
+      float dpower, w;
+      walk_row<CH>(f, kRows, i, i < cnt && base - start + i < px_state.nc,
+                   CH, px_state.gc, px_state.gd, px_state.S, px, py, T,
+                   prefix, dpower, w);
+      dw[i * kLd + lane] = dpower;
+      dw[(kRows + i) * kLd + lane] = w;
     }
-    // the next batch overwrites rows and part
+    __syncwarp();
+    warp_products<NF>(dw, gw, lane);
+    __syncthreads();
+    const int i = i_row;
+    const long long r = i < cnt ? rank[base + i] : 0;
+    finish_row<NF>(smem, i, j_row, CH, i < cnt, f[i], f[kRows + i],
+                   f[2 * kRows + i], f[3 * kRows + i], f[4 * kRows + i],
+                   f[5 * kRows + i], tx * kTile, ty * kTile,
+                   [&](int k, float v) { out[(size_t)k * n + r] = v; });
+    // the next batch's rows have landed; D, W, the partials and this
+    // batch's staging buffer are free again
+    cp_async_wait_all();
     __syncthreads();
   }
+}
+
+template <int CH>
+size_t smem_bytes() {
+  return Layout<feature_cols(CH)>::bytes((7 + CH) * kRows);
+}
+
+template <int CH>
+cudaError_t launch(const dim3& grid, cudaStream_t s, const void* bounds,
+                   const void* payload, const void* rank, long long n,
+                   int num_tiles, int grid_x, const void* g_color,
+                   const void* g_depth, const void* g_T, const void* color,
+                   const void* depth, const void* final_T,
+                   const void* n_contrib, void* out) {
+  const size_t bytes = smem_bytes<CH>();
+  cudaError_t e = set_smem(backward_tile_kernel<CH>, bytes);
+  if (e != cudaSuccess) return e;
+  backward_tile_kernel<CH><<<grid, kPx, bytes, s>>>(
+      (const int*)bounds, (const float*)payload, (const long long*)rank, n,
+      num_tiles, grid_x, (const float*)g_color, (const float*)g_depth,
+      (const float*)g_T, (const float*)color, (const float*)depth,
+      (const float*)final_T, (const int*)n_contrib, (float*)out);
+  return cudaGetLastError();
+}
+
+template <int CH>
+cudaError_t occupancy(int* smem, int* blocks) {
+  *smem = (int)smem_bytes<CH>();
+  cudaError_t e = set_smem(backward_tile_kernel<CH>, *smem);
+  if (e != cudaSuccess) return e;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, backward_tile_kernel<CH>, kPx, (size_t)*smem);
 }
 
 }  // namespace
@@ -203,30 +167,37 @@ extern "C" int backward_tile(const void* bounds, const void* payload,
                              const void* final_T, const void* n_contrib,
                              void* out, void* stream) {
   if (num_tiles <= 0) return (int)cudaErrorInvalidValue;
-  // one block per tile, and one for the rows past the last tile
-  const dim3 grid(num_tiles + 1), block(kPx);
+  const dim3 grid(num_tiles);  // one block per tile
   cudaStream_t s = (cudaStream_t)stream;
-#define LAUNCH(CH)                                                          \
-  backward_tile_kernel<CH><<<grid, block, 0, s>>>(                          \
-      (const int*)bounds, (const float*)payload, (const long long*)rank, n, \
-      num_tiles, grid_x, (const float*)g_color, (const float*)g_depth,      \
-      (const float*)g_T, (const float*)color, (const float*)depth,          \
-      (const float*)final_T, (const int*)n_contrib, (float*)out)
+#define LAUNCH(CH)                                                         \
+  launch<CH>(grid, s, bounds, payload, rank, n, num_tiles, grid_x, g_color, \
+             g_depth, g_T, color, depth, final_T, n_contrib, out)
   switch (ch) {
     case 1:
-      LAUNCH(1);
-      break;
+      return (int)LAUNCH(1);
     case 2:
-      LAUNCH(2);
-      break;
+      return (int)LAUNCH(2);
     case 3:
-      LAUNCH(3);
-      break;
+      return (int)LAUNCH(3);
     default:
       return (int)cudaErrorInvalidValue;
   }
 #undef LAUNCH
-  return (int)cudaGetLastError();
+}
+
+// Dynamic shared memory of the ch-channel instance and the blocks of it
+// that fit on one SM; returns a CUDA error code
+extern "C" int backward_tile_occupancy(int ch, int* smem, int* blocks) {
+  switch (ch) {
+    case 1:
+      return (int)occupancy<1>(smem, blocks);
+    case 2:
+      return (int)occupancy<2>(smem, blocks);
+    case 3:
+      return (int)occupancy<3>(smem, blocks);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 extern "C" const char* backward_tile_error_string(int code) {

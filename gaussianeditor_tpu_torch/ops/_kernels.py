@@ -5,8 +5,9 @@ Each `csrc/<name>.cu` holds one kernel behind a plain C entry point
 `cudaGetLastError()`, plus `const char* <name>_error_string(int)`. At
 first use every source is compiled by its own `nvcc` process, all started
 together, into `build/kernels/lib<name>-<digest>.so` beside the package
-(the directory is git-ignored); the digest covers the source and the
-flags, so an edited source is rebuilt. The libraries are loaded with
+(the directory is git-ignored); the digest covers the source, the
+headers of `csrc/` and the flags, so an edited source or header is
+rebuilt. The libraries are loaded with
 `ctypes`. Nothing is compiled at import time, and nothing but the
 repository's own sources is built.
 
@@ -24,7 +25,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 
@@ -88,9 +89,13 @@ def nvcc_path() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    """The library of kernel `name`; its digest covers the source, every
+    header of `csrc/` (a source may include any of them) and the flags."""
+    h = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names=None) -> Dict[str, float]:
@@ -155,6 +160,22 @@ def launch(name: str, device: torch.device, *args) -> None:
         msg = getattr(lib, f"{name}_error_string")(code).decode()
         raise RuntimeError(f"CUDA kernel {name} failed to launch: {msg}")
     LAUNCHES[name] += 1
+
+
+def occupancy(name: str, ch: int) -> Tuple[int, int]:
+    """(dynamic shared memory in bytes, blocks per SM) of the instance of
+    kernel `name` that takes `ch` channels, from its C function
+    `<name>_occupancy` (the backward kernels B3 and B6 export one)."""
+    fn = getattr(_load(name), f"{name}_occupancy")
+    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+                   ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    smem, blocks = ctypes.c_int(0), ctypes.c_int(0)
+    code = fn(ch, ctypes.byref(smem), ctypes.byref(blocks))
+    if code != 0:
+        msg = getattr(_load(name), f"{name}_error_string")(code).decode()
+        raise RuntimeError(f"{name}_occupancy({ch}) failed: {msg}")
+    return smem.value, blocks.value
 
 
 def reset_launch_counts() -> None:

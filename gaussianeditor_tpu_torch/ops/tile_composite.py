@@ -146,12 +146,14 @@ def backward_rows_plain(start: torch.Tensor, cnt: torch.Tensor,
     (start, cnt), row r written to column out_col[r] (to column r when
     `out_col` is None). One row position at a time for all tiles at once;
     rows past a tile's largest n_contrib, and columns no row maps to,
-    stay zero."""
+    stay zero. It computes in the payload's dtype (float64 gives a
+    reference for float32 evaluations)."""
     dev = payload.device
+    dt = payload.dtype
     T = start.shape[0]
     n = payload.shape[1]
     G = 7 + ch
-    rows = torch.zeros((G, n), dtype=torch.float32, device=dev)
+    rows = torch.zeros((G, n), dtype=dt, device=dev)
     if n == 0 or T == 0:
         return rows
     start = start.to(torch.int64)
@@ -163,8 +165,8 @@ def backward_rows_plain(start: torch.Tensor, cnt: torch.Tensor,
         S = S + g_color[..., c] * tiles.color[..., c]
     S = S + g_depth * tiles.depth
 
-    trans = torch.ones((T, PX), dtype=torch.float32, device=dev)
-    prefix = torch.zeros((T, PX), dtype=torch.float32, device=dev)
+    trans = torch.ones((T, PX), dtype=dt, device=dev)
+    prefix = torch.zeros((T, PX), dtype=dt, device=dev)
     limit = torch.minimum(cnt, nc.max(dim=1).values)
     for i in range(int(limit.max())):
         r = payload[:, torch.clamp(start + i, max=n - 1)]   # [P, T]
@@ -229,7 +231,8 @@ def backward_tiles(tile_bounds: torch.Tensor, payload: torch.Tensor,
                          f"channels, got {ch}")
     T = tile_bounds.shape[0] - 1
     n = payload.shape[1]
-    out = torch.empty((7 + ch, n), dtype=torch.float32, device=dev)
+    # the kernel writes only the rows it walks: the rest stay these zeros
+    out = torch.zeros((7 + ch, n), dtype=torch.float32, device=dev)
     if n == 0:
         return out
     chk = _kernels.check_cuda_tensor

@@ -1,13 +1,17 @@
-"""Comparison helpers shared by the port's tests and `chip_smoke.py`.
+"""Comparison helpers and test inputs shared by the port's tests and
+`chip_smoke.py`.
 
 `assert_images_close` is a copy of `tests/helpers.py::assert_images_close`
 (the JAX suite's image tolerance), kept here so that code which must not
-import the JAX test helpers can apply the same bounds.
+import the JAX test helpers can apply the same bounds. `adversarial_rows`
+and `dense_from_rows` make inputs for the backward kernels' tests, on the
+CPU and on the card.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 
 def _host(a) -> np.ndarray:
@@ -33,3 +37,81 @@ def assert_images_close(a, b, tight=3e-5, loose=6e-3, frac=0.995,
 def fraction_equal(a, b) -> float:
     """Share of entries where `a` and `b` are equal."""
     return float(np.mean(_host(a) == _host(b)))
+
+
+def adversarial_rows(seed, ch, gx=4, gy=3, device="cpu"):
+    """Depth-sorted rows made directly, tile by tile, for the backward
+    kernels: centres inside the tile, near it and hundreds of pixels
+    outside; radii from half a pixel to 400; opacities at the 0.99 cap,
+    just above 1/255, and between; 20 to 299 rows a tile. Returns (start,
+    cnt, payload [7 + ch, n], grid_x)."""
+    rng = np.random.RandomState(seed)
+    T = gx * gy
+    cnt = rng.randint(20, 300, size=T)
+    cols = []
+    for t in range(T):
+        k = cnt[t]
+        cx = (t % gx) * 16 + 8.0
+        cy = (t // gx) * 16 + 8.0
+        kind = rng.randint(0, 3, size=k)
+        reach = np.choose(kind, [8.0, 60.0, 400.0])
+        off = rng.uniform(-1, 1, (k, 2)) * reach[:, None]
+        sig = np.exp(rng.uniform(np.log(0.5), np.log(400.0), (k, 2)))
+        th = rng.uniform(0, np.pi, k)
+        cos, sin = np.cos(th), np.sin(th)
+        # conic = (R diag(sig^2) R^T)^-1
+        i1, i2 = 1 / sig[:, 0] ** 2, 1 / sig[:, 1] ** 2
+        a = cos * cos * i1 + sin * sin * i2
+        b = cos * sin * (i1 - i2)
+        c = sin * sin * i1 + cos * cos * i2
+        opk = rng.randint(0, 3, size=k)
+        op = np.choose(opk, [rng.uniform(0.991, 1.0, k),
+                             (1 / 255) * rng.uniform(1.0, 1.05, k),
+                             rng.uniform(0.05, 0.95, k)])
+        depth = np.sort(rng.uniform(1, 10, k))
+        color = rng.uniform(0, 1, (ch, k))
+        cols.append(np.concatenate(
+            [np.stack([cx + off[:, 0], cy + off[:, 1], a, b, c, op, depth]),
+             color]).astype(np.float32))
+    payload = torch.from_numpy(np.concatenate(cols, axis=1)).to(device)
+    start = np.concatenate([[0], np.cumsum(cnt)[:-1]])
+    return (torch.from_numpy(start).to(device),
+            torch.from_numpy(cnt).to(device), payload, gx)
+
+
+def dense_from_rows(start, cnt, payload):
+    """The chunk-aligned layout of `adversarial_rows`' tiles: (inst [NC,
+    7 + ch, 128], a DenseBinning whose chunk fields describe it; the
+    fields the backward does not read are empty)."""
+    from gaussianeditor_tpu_torch.ops.binning_dense import CHUNK, DenseBinning
+
+    dev = payload.device
+    P = payload.shape[0]
+    tiles, offs, nvalid, src = [], [], [], []
+    for t, (s0, c) in enumerate(zip(start.tolist(), cnt.tolist())):
+        for off in range(0, c, CHUNK):
+            tiles.append(t)
+            offs.append(off)
+            nvalid.append(min(CHUNK, c - off))
+            src.append(s0 + off)
+    tiles.append(0)          # one dead chunk past the last tile
+    offs.append(0)
+    nvalid.append(0)
+    src.append(0)
+    NC = len(tiles)
+    inst = torch.zeros((NC, P, CHUNK), device=dev)
+    for k in range(NC - 1):
+        inst[k, :, :nvalid[k]] = payload[:, src[k]:src[k] + nvalid[k]]
+    i32 = dict(dtype=torch.int32, device=dev)
+    empty = torch.zeros((0,), dtype=torch.int64, device=dev)
+    db = DenseBinning(
+        sorted_g=empty, a_by_rank=empty, b_incl=empty.to(torch.int32),
+        chunk_p0=torch.tensor(src, dtype=torch.int64, device=dev),
+        chunk_tile=torch.tensor(tiles, **i32),
+        chunk_first=torch.tensor([int(o == 0) for o in offs], **i32),
+        chunk_nvalid=torch.tensor(nvalid, **i32),
+        chunk_offset=torch.tensor(offs, **i32),
+        tile_nonempty=cnt > 0,
+        num_rendered=torch.tensor(int(cnt.sum()), **i32),
+        overflow=torch.tensor(False, device=dev))
+    return inst, db

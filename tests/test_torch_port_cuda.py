@@ -29,15 +29,22 @@ from gaussianeditor_tpu_torch.ops.dense_composite import (
     forward_chunks,
     forward_chunks_plain,
     pack_instances,
+    rows_by_rank,
 )
 from gaussianeditor_tpu_torch.ops.render import preprocess_scene, render
 from gaussianeditor_tpu_torch.ops.tile_composite import (
     backward_tiles,
     backward_tiles_plain,
+    composite_rows_plain,
     forward_tiles,
     forward_tiles_plain,
 )
-from gaussianeditor_tpu_torch.testing import assert_images_close, fraction_equal
+from gaussianeditor_tpu_torch.testing import (
+    adversarial_rows,
+    assert_images_close,
+    dense_from_rows,
+    fraction_equal,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -225,7 +232,7 @@ def test_forward_chunk_kernel_matches_plain(cuda, ch):
         forward_chunks(wide, db, gx)
 
 
-@pytest.mark.parametrize("ch", [1, 3, 8])
+@pytest.mark.parametrize("ch", [1, 3, 8, 16, 32])
 def test_backward_chunk_kernel_matches_plain(cuda, ch):
     db, inst, gx = _dense_view(cuda, ch, seed=6)
     tiles = forward_chunks(inst, db, gx)
@@ -239,6 +246,112 @@ def test_backward_chunk_kernel_matches_plain(cuda, ch):
     torch.testing.assert_close(got, want, atol=1e-3, rtol=1e-2)
     assert torch.equal(got, again)
     assert not got[db.chunk_nvalid == 0].any()
+
+
+def _hold_to_float64(got, plain, *args):
+    """`got` against `plain(*args)` evaluated in float64: every entry
+    within the gradient tolerance plus 16 times what a float32 evaluation
+    cannot decide there, the entry's largest change over two runs with
+    every floating input moved by up to 2^-24 of itself. On the
+    adversarial rows a few sums cancel by many orders of magnitude (the
+    alpha cap makes dpower large, Gaussians hundreds of pixels away
+    weight it by dx dy), and two float32 orders of the same sum differ
+    there beyond atol 1e-3 / rtol 1e-2; elsewhere the allowance is nil
+    (it widens the tolerance on under 1% of the entries). The plain
+    version in float32 must meet the same bound."""
+    gen = torch.Generator().manual_seed(0)
+
+    def cast(x, noise):
+        if isinstance(x, tuple):
+            return type(x)(*(cast(v, noise) for v in x))
+        if not (isinstance(x, torch.Tensor) and x.is_floating_point()):
+            return x
+        x = x.double()
+        if noise:
+            u = torch.rand(x.shape, generator=gen, dtype=torch.float64)
+            x = x * (1.0 + 2.0 ** -24 * (2.0 * u.to(x.device) - 1.0))
+        return x
+
+    ref = plain(*(cast(a, False) for a in args))
+    undecided = torch.zeros_like(ref)
+    for _ in range(2):
+        moved = plain(*(cast(a, True) for a in args))
+        undecided = torch.maximum(undecided, (moved - ref).abs())
+    tol = 1e-3 + 1e-2 * ref.abs()
+    bound = tol + 16.0 * undecided
+    want32 = plain(*args)
+    assert bool(((want32.double() - ref).abs() <= bound).all())
+    assert bool(((got.double() - ref).abs() <= bound).all())
+    # the allowance widens the tolerance on a small share of entries
+    assert float((16.0 * undecided > tol).double().mean()) < 1e-2
+
+
+def test_backward_tile_kernel_adversarial(cuda):
+    """B3 on rows made to stress its pixel sums: centres far outside the
+    tile, radii of hundreds of pixels, opacities at the cap and near
+    1/255 (`gaussianeditor_tpu_torch.testing.adversarial_rows`)."""
+    start, cnt, payload, gx = adversarial_rows(11, 3, device=cuda)
+    tiles = composite_rows_plain(start, cnt, payload, gx, 3)[0]
+    bounds = torch.cat([start, start[-1:] + cnt[-1:]]).to(torch.int32)
+    n = payload.shape[1]
+    rank = torch.randperm(n, generator=torch.Generator().manual_seed(0)
+                          ).to(cuda)
+    g_color, g_depth, g_T = _cotangents(start.shape[0], 3, cuda, seed=11)
+    args = (bounds, payload, rank, tiles, g_color, g_depth, g_T, gx, 3)
+    got = backward_tiles(*args)
+    again = backward_tiles(*args)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    _hold_to_float64(got, backward_tiles_plain, *args)
+    assert torch.equal(got, again)
+
+
+def test_backward_chunk_kernel_adversarial(cuda):
+    """B6 at ch 8 on the adversarial rows, laid out in chunks of 128."""
+    start, cnt, payload, gx = adversarial_rows(12, 8, device=cuda)
+    inst, db = dense_from_rows(start, cnt, payload)
+    tiles = composite_rows_plain(start, cnt, payload, gx, 8)[0]
+    g_color, g_depth, g_T = _cotangents(start.shape[0], 8, cuda, seed=12)
+    args = (inst, db, tiles, g_color, g_depth, g_T, gx)
+    got = backward_chunks(*args)
+    again = backward_chunks(*args)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    _hold_to_float64(got, backward_chunks_plain, *args)
+    assert torch.equal(got, again)
+
+
+def test_backward_routes_bitwise_equal_and_repeatable(cuda):
+    """B3 then B4 and B6 then the rank gather then B4 give the same
+    per-Gaussian sums bit for bit (the same rows in the same batches, the
+    same arithmetic), and each repeats bitwise."""
+    proc = _proc(_scene(20000, cuda, seed=7), 200, cuda)
+    gx = 13   # 169 tiles: the two routes' depth keys keep the same bits
+    C = proc.tiles_touched.shape[0]
+    sb = sorted_bin(proc, gx, gx, 1 << 22)
+    db = dense_bin(proc, gx, gx, 1 << 22)
+    tiles = forward_tiles(sb, gx, 3)
+    inst = pack_instances(proc.mean2d, proc.conic, proc.opacity, proc.color,
+                          proc.depth, db)
+    g = _cotangents(gx * gx, 3, cuda, seed=7)
+
+    def sorted_route():
+        rows = backward_tiles(sb.tile_bounds, sb.payload, sb.rank, tiles, *g,
+                              gx, 3)
+        return rank_segment_sum(rows, sb.b_incl, proc.tiles_touched, C)
+
+    def dense_route():
+        rows = rows_by_rank(backward_chunks(inst, db, tiles, *g, gx),
+                            db.a_by_rank)
+        return rank_segment_sum(rows, db.b_incl, proc.tiles_touched, C)
+
+    a, b = sorted_route(), dense_route()
+    a2, b2 = sorted_route(), dense_route()
+    torch.cuda.synchronize()
+    assert float(a.abs().max()) > 0
+    assert torch.equal(a, a2)
+    assert torch.equal(b, b2)
+    assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("ch", [3, 8])

@@ -25,7 +25,7 @@ def _imported_roots(path: Path):
 
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) +
-                         [ROOT / "chip_smoke.py"],
+                         [ROOT / "chip_smoke.py", ROOT / "probe_backward.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_source_imports_no_jax(path):
     bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))
