@@ -10,12 +10,13 @@ Phases, in order; any failure exits non-zero:
      scene (bench.py's recipe, seed 0) written to a PLY and loaded the way
      the viewer loads it, at 4x capacity; one 512x512 view, rendered both
      ways a served frame renders it: the color view (ch = 3) and the
-     overlay's mask view (ch = 1). Kernel B1's keys and sort order must
-     equal its plain version's bit for bit; kernel B2's images must meet
-     the JAX suite's image bounds and its n_contrib must agree on >= 99.9%
-     of pixels. Each kernel is timed with CUDA events (median of 20
-     samples), beside its plain version on the color view (3 samples for
-     B2's, which takes seconds a call).
+     overlay's mask view (ch = 1); B2's registers and spills are printed
+     first. Kernel B1's keys and sort order must equal its plain
+     version's bit for bit; kernel B2's images must meet the JAX suite's
+     image bounds and its n_contrib must agree on >= 99.9% of pixels.
+     Each kernel is timed with CUDA events (median of 20 samples), beside
+     its plain version on the color view (3 samples for B2's, which
+     takes seconds a call).
   4. the main path: the viewer's state is built as its `main` builds it
      (the PLY plus a synthetic COLMAP workspace) and served over HTTP;
      GET /render answers two orbit views, one client pose, one overlay
@@ -27,14 +28,15 @@ Phases, in order; any failure exits non-zero:
   6. the backward kernels against their plain versions, at full width:
      phase 3's color view and a seeded cotangent (g_color, g_depth,
      g_final_T). First the rows per tile (max, mean, the longest tile's
-     rows before its largest n_contrib) and each B3 instance's registers,
-     spills, shared memory and blocks per SM. Kernel B3's rank-ordered
-     gradient rows must meet the JAX suite's gradient tolerance (atol
-     1e-3, rtol 1e-2) against its plain version, kernel B4's
-     per-Gaussian sums 1e-5 of each column's RMS against its plain
-     version, and B3 followed by B4 must repeat bitwise. Timed with CUDA events (median of 20 samples; the plain
-     versions over 3), beside `torch.segment_reduce`, the one PyTorch
-     call that computes B4's function.
+     rows before its largest n_contrib) and each B3 instance's, and
+     B4's, registers, spills, shared memory and blocks per SM. Kernel
+     B3's rank-ordered gradient rows must meet the JAX suite's gradient
+     tolerance (atol 1e-3, rtol 1e-2) against its plain version, kernel
+     B4's per-Gaussian sums 1e-5 of each column's RMS against its plain
+     version, and B3 followed by B4 must repeat bitwise. Timed with
+     CUDA events (median of 20 samples; the plain versions over 3),
+     beside `torch.segment_reduce`, the one PyTorch call that computes
+     B4's function.
   7. the train path: the edit train step at full width (the scene of
      phase 3, two 512x512 orbit views, the edit config's loss weights and
      learning-rate scalers, the multiscale-gradient perceptual term),
@@ -56,10 +58,12 @@ Phases, in order; any failure exits non-zero:
      n_contrib agree on >= 99.9% of pixels; on the color view it must
      equal B2's n_contrib on every pixel and its color and final_T be
      within 2e-6 of B2's. Kernel B6's aligned rows must meet atol 1e-3 /
-     rtol 1e-2 against its plain version; gathered into rank order and
-     summed by B4 they must be within 3e-4 of each column's max of B3
-     then B4, and repeat bitwise. Timed as phase 6 times B3 (B6 at each
-     width), beside `dense_bin` and `sorted_bin`.
+     rtol 1e-2 against its plain version; gathered into rank order
+     (`rows_by_rank`) and summed by B4, they must be within 1e-5 of each
+     column's RMS of B4's plain version on the same rows, within 3e-4 of
+     each column's max of B3 then B4 and bitwise equal to it, and repeat
+     bitwise. Timed as phase 6 times B3 (B6 at each width, and B4 and
+     the gather on B6's rows), beside `dense_bin` and `sorted_bin`.
   9. the train path through the dense route: the scene loaded again
      from the PLY, phase 7's optimizer, cameras and targets, 6 steps of
      `make_train_step(..., impl="pallas4")` with the launch counts zeroed
@@ -213,12 +217,12 @@ def kernel_resources(name: str, channels) -> None:
 
     from gaussianeditor_tpu_torch.ops import _kernels
 
-    inst = None
+    inst = ""
     for line in _kernels.BUILD_LOG.get(name, "").splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
             k = re.search(r"ILi(\d+)E", m.group(1))
-            inst = f"<{k.group(1)}>" if k else m.group(1)
+            inst = f"<{k.group(1)}>" if k else ""
         elif "spill" in line or "registers" in line:
             print(f"  {name}{inst}: {line.split(':', 1)[-1].strip()}")
     for ch in channels:
@@ -380,6 +384,7 @@ def phase_kernels(scene, device) -> list:
         # the overlay's second render (webui `_render`): the mask as color
         mask_proc = preprocess_scene(
             scene, cam, override_color=scene.mask[:, None].to(torch.float32))
+    kernel_resources("forward_tile", ())
     main = check_kernels(color_proc, gx, gy, budget, "color view", True)
     overlay = check_kernels(mask_proc, gx, gy, budget, "overlay mask view",
                             False)
@@ -575,6 +580,7 @@ def phase_backward(view) -> list:
     assert bool(ok.all()), "B3: rows differ from plain beyond atol/rtol"
 
     # --- B4 ---
+    kernel_resources("rank_segment_sum", (3,))
     d = rank_segment_sum(rows, b_incl, tt, C)
     d_plain = rank_segment_sum_plain(rows, b_incl, tt, C)
     torch.cuda.synchronize()
@@ -641,15 +647,17 @@ def phase_backward(view) -> list:
     ]
 
 
-def phase_dense(view, scene, cam, budget: int) -> list:
+def phase_dense(view, scene, cam, budget: int):
     """Phase 8: kernels B5 and B6 against their plain versions on phase
     3's color view and an 8-channel feature render of it, B5 against B2
-    and B6 then B4 against B3 then B4; returns their JSON rows."""
+    and B6 then B4 against B3 then B4; returns their JSON rows and B4's
+    time on B6's rows."""
     import torch
 
     from gaussianeditor_tpu_torch.ops.binning_dense import dense_bin
     from gaussianeditor_tpu_torch.ops.binning_sorted import (
         rank_segment_sum,
+        rank_segment_sum_plain,
         sorted_bin,
     )
     from gaussianeditor_tpu_torch.ops.dense_composite import (
@@ -764,24 +772,39 @@ def phase_dense(view, scene, cam, budget: int) -> list:
 
     # --- B6 then B4 against B3 then B4, the color view ---
     g_color, g_depth, g_T = r["cot"]
-    d_dense = rank_segment_sum(rows_by_rank(r["grows"], db.a_by_rank),
-                               db.b_incl, tt, C)
+    gathered = rows_by_rank(r["grows"], db.a_by_rank)
+    d_dense = rank_segment_sum(gathered, db.b_incl, tt, C)
+    d_plain = rank_segment_sum_plain(gathered, db.b_incl, tt, C)
     rows3 = backward_tiles(sb.tile_bounds, sb.payload, sb.rank, b2_tiles,
                            g_color, g_depth, g_T, gx, 3)
     d_sorted = rank_segment_sum(rows3, sb.b_incl, tt, C)
     torch.cuda.synchronize()
+    rms = d_plain.pow(2).mean(dim=0).sqrt()
+    rel_plain = float(((d_dense - d_plain).abs() / rms).max())
+    print(f"B4 over B6's rows gathered into rank order: max {rel_plain:.3g} "
+          f"of the column RMS vs plain", flush=True)
+    assert rel_plain <= 1e-5, f"B4 on B6's rows: {rel_plain} of the column RMS"
     col_max = d_sorted.abs().max(dim=0).values
     rel = float(((d_dense - d_sorted).abs() / (col_max + 1e-30)).max())
-    print(f"B6 then B4 vs B3 then B4: max {rel:.3g} of each column's max "
-          f"(bitwise equal: {torch.equal(d_dense, d_sorted)})", flush=True)
+    print(f"B6 then B4 vs B3 then B4: max {rel:.3g} of each column's max",
+          flush=True)
     assert rel <= 3e-4, f"dense gradients off by {rel} of a column's max"
+    assert torch.equal(d_dense, d_sorted), \
+        "B6 then B4 is not bitwise equal to B3 then B4"
+    print("B6 then B4 and B3 then B4: bitwise equal", flush=True)
     grows2 = backward_chunks(inst, db, tk, g_color, g_depth, g_T, gx)
     d2 = rank_segment_sum(rows_by_rank(grows2, db.a_by_rank), db.b_incl, tt,
                           C)
     torch.cuda.synchronize()
     assert torch.equal(r["grows"], grows2), "B6 is not bitwise repeatable"
     assert torch.equal(d_dense, d2), "B6 then B4 is not bitwise repeatable"
-    print("B6 then B4 run twice: bitwise equal", flush=True)
+    b4_dense_ms = time_ms(lambda: rank_segment_sum(gathered, db.b_incl, tt,
+                                                   C))
+    gather_ms = time_ms(lambda: rows_by_rank(r["grows"], db.a_by_rank))
+    print(f"B6 then B4 run twice: bitwise equal; B4 over B6's gathered rows "
+          f"{b4_dense_ms:.4f} ms, the gather (rows_by_rank) {gather_ms:.4f} "
+          f"ms", flush=True)
+    del gathered, d_plain
 
     # --- times and bounds, the color view ---
     bargs = (inst, db, tk, g_color, g_depth, g_T, gx)
@@ -826,7 +849,7 @@ def phase_dense(view, scene, cam, budget: int) -> list:
                         ms_by_ch={k: res[k][key] for k in sorted(res)}))
     print(f"evaluated pairs {r['pairs']}, contributing {r['contrib']}, rows "
           f"before n_contrib {sum_nc}", flush=True)
-    return out
+    return out, b4_dense_ms
 
 
 def run_steps(step, state, cams, targets, k: int):
@@ -1091,7 +1114,11 @@ def main() -> int:
 
         # 8. the dense route's kernels vs plain at full width, on phase
         # 3's view before phase 7 trains the scene
-        kernels += phase_dense(view, state.scene, cam, view["budget"])
+        rows, b4_dense_ms = phase_dense(view, state.scene, cam,
+                                        view["budget"])
+        kernels += rows
+        b4 = next(k for k in kernels if k["name"] == "B4 rank_segment_sum")
+        b4["ms_by_route"] = {"sorted": b4["ms"], "dense": b4_dense_ms}
         del view
 
         # 7. the train path

@@ -21,12 +21,30 @@
 // f32 operations with one exp, and each contributing pair 2 ch + 3 more,
 // while each row's 4 * (7 + ch) bytes are read once per tile, so at the
 // main path's shapes the FP32 pipes, not memory, set the floor.
-// Design: rows are staged through shared memory in batches of 256, one
-// coalesced load per field, and read back as broadcasts (no bank
-// conflicts); the block stops as soon as every pixel is done
-// (__syncthreads_count). It uses the accurate expf, not __expf; the
-// compiler's multiply-add contraction leaves it within f32 rounding of
-// its plain torch version.
+//
+// What set the time of one row at a time (measured on the H100 by
+// probe_b2_b4.py): the issue rate of 54 instructions a pair over all
+// pairs, and the longest tiles, which walk up to 2.8x the mean and end
+// last, latency-bound on one dependent chain a row. The design does
+// three things about it, none of which changes a result:
+// - Rows are staged in shared memory as three 16-byte records, (x, y, a,
+//   b), (c, opacity, thr, depth) and the colors, so a pair reads two or
+//   three 128-bit broadcasts instead of ten 32-bit ones.
+// - thr = logf(1 / (255 opacity)) - kMargin, computed once per row at
+//   staging, is an exact pre-test: power < thr implies that the f32
+//   alpha is below 1/255 (see thr_of), so such a pair is skipped without
+//   its expf. Pairs within the margin take the exact test.
+// - Rows are walked in groups of kGroup: the power and pre-test of the
+//   group's rows (independent of T) come first, without a branch, so
+//   their latencies overlap; only the rows that pass take the serial
+//   T / acc / n_contrib update, in row order. Groups of 8 cost 64
+//   registers (4 blocks a SM) and beat groups of 4 or 16, and 8 with
+//   fewer registers (spills).
+// Each pair that is not skipped runs the parent's arithmetic in the
+// parent's order (the same expressions for power and alpha, the accurate
+// expf), so color, depth, final_T and n_contrib are bitwise those of one
+// row at a time. The block stops as soon as every pixel is done
+// (__syncthreads_count).
 
 #include <cuda_runtime.h>
 
@@ -34,9 +52,33 @@ namespace {
 
 constexpr int kTile = 16;
 constexpr int kPx = kTile * kTile;  // threads per block: one per pixel
+constexpr int kGroup = 8;           // rows whose power is formed together
 constexpr float kAlphaMax = 0.99f;
 constexpr float kAlphaMin = 1.0f / 255.0f;
 constexpr float kTMin = 1e-4f;
+constexpr float kMargin = 1e-3f;
+static_assert(kPx % kGroup == 0, "a batch holds whole groups");
+
+// The pre-test threshold of a row: if power < thr_of(op) then the f32
+// alpha = fminf(0.99, op * expf(power)) < 1/255. With X = 1 / (255 op)
+// (2 roundings) and logf within 1 ulp, thr <= ln X - kMargin + 2e-6 for
+// every op, so op * exp(power) < exp(2e-6 - kMargin) / 255, and expf's
+// 2 ulp and the product's rounding stay far inside the 1e-3 margin. An
+// opacity of 0 (or so small that 255 op underflows) gives +inf: every
+// pair is skipped, as its alpha is 0. A NaN thr skips nothing.
+__device__ __forceinline__ float thr_of(float op) {
+  return logf(1.0f / (255.0f * op)) - kMargin;
+}
+
+// The row's power at pixel (px, py), from its records (x, y, a, b) and
+// (c, ...): the parent's expression, which the compiler contracts as it
+// did the parent's
+__device__ __forceinline__ float power_of(const float4& r0, const float4& r1,
+                                          float px, float py) {
+  const float dx = r0.x - px;
+  const float dy = r0.y - py;
+  return -0.5f * (r0.z * dx * dx + r1.x * dy * dy) - r0.w * dx * dy;
+}
 
 template <int CH>
 __global__ void __launch_bounds__(kPx) forward_tile_kernel(
@@ -44,8 +86,8 @@ __global__ void __launch_bounds__(kPx) forward_tile_kernel(
     long long n, int grid_x, float* __restrict__ out_color,
     float* __restrict__ out_depth, float* __restrict__ out_T,
     int* __restrict__ out_nc) {
-  constexpr int P = 7 + CH;
-  __shared__ float rows[P][kPx];
+  // (x, y, a, b), (c, opacity, thr, depth), (color[0..CH), 0)
+  __shared__ float4 rec0[kPx], rec1[kPx], rec2[kPx];
 
   const int t = blockIdx.x;
   const int p = threadIdx.x;
@@ -68,30 +110,52 @@ __global__ void __launch_bounds__(kPx) forward_tile_kernel(
     if (__syncthreads_count(done) == kPx) break;
     const int r = base + p;
     if (r < end) {
+      const float* f = payload + r;
+      const float op = f[5 * n];
+      float col[3] = {0.0f, 0.0f, 0.0f};
 #pragma unroll
-      for (int f = 0; f < P; ++f) rows[f][p] = payload[(size_t)f * n + r];
+      for (int c = 0; c < CH; ++c) col[c] = f[(7 + c) * n];
+      rec0[p] = make_float4(f[0], f[n], f[2 * n], f[3 * n]);
+      rec1[p] = make_float4(f[4 * n], op, thr_of(op), f[6 * n]);
+      rec2[p] = make_float4(col[0], col[1], col[2], 0.0f);
+    } else {
+      // past the tile's rows: a row that every pixel skips
+      rec0[p] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      rec1[p] = make_float4(0.0f, 0.0f, __int_as_float(0x7f800000), 0.0f);
     }
     __syncthreads();
     const int m = min(kPx, end - base);
-    for (int i = 0; i < m && !done; ++i) {
-      const float dx = rows[0][i] - px;
-      const float dy = rows[1][i] - py;
-      const float power = -0.5f * (rows[2][i] * dx * dx + rows[4][i] * dy * dy)
-                          - rows[3][i] * dx * dy;
-      if (power > 0.0f) continue;
-      const float alpha = fminf(kAlphaMax, rows[5][i] * expf(power));
-      if (alpha < kAlphaMin) continue;
-      const float test_T = T * (1.0f - alpha);
-      if (test_T < kTMin) {
-        done = true;
-        break;
-      }
-      const float w = alpha * T;
+    for (int i = 0; i < m && !done; i += kGroup) {
+      float power[kGroup];
+      bool pass[kGroup];
+      bool any = false;
 #pragma unroll
-      for (int c = 0; c < CH; ++c) acc[c] += w * rows[7 + c][i];
-      dsum += w * rows[6][i];
-      T = test_T;
-      last = base - start + i + 1;
+      for (int j = 0; j < kGroup; ++j) {
+        power[j] = power_of(rec0[i + j], rec1[i + j], px, py);
+        pass[j] = !(power[j] > 0.0f) && !(power[j] < rec1[i + j].z);
+        any |= pass[j];
+      }
+      if (!any) continue;
+#pragma unroll
+      for (int j = 0; j < kGroup; ++j) {
+        if (!pass[j]) continue;
+        const float4 r1 = rec1[i + j];
+        const float alpha = fminf(kAlphaMax, r1.y * expf(power[j]));
+        if (alpha < kAlphaMin) continue;
+        const float test_T = T * (1.0f - alpha);
+        if (test_T < kTMin) {
+          done = true;
+          break;
+        }
+        const float w = alpha * T;
+        const float4 r2 = rec2[i + j];
+        const float col[3] = {r2.x, r2.y, r2.z};
+#pragma unroll
+        for (int c = 0; c < CH; ++c) acc[c] += w * col[c];
+        dsum += w * r1.w;
+        T = test_T;
+        last = base - start + i + j + 1;
+      }
     }
   }
 

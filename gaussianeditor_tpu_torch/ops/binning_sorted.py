@@ -28,9 +28,10 @@ writes each sorted row's gradient straight to its pre-sort rank (`rank`
 is a permutation), so Gaussian g's rows sit at the contiguous ranks
 [b_incl[g] - tiles_touched[g], b_incl[g]); kernel B4
 (`csrc/rank_segment_sum.cu`) sums each segment in rank order, in
-double, rounded once. It takes the place of the JAX route's rank-keyed
-stable sort, its Pallas `_make_assembly_kernel` restack and
-`rank_space_reduce_blocked`'s mean-centred prefix differences.
+double, rounded once, one block per range of slots. It takes the place
+of the JAX route's rank-keyed stable sort, its Pallas
+`_make_assembly_kernel` restack and `rank_space_reduce_blocked`'s
+mean-centred prefix differences.
 """
 
 from __future__ import annotations
@@ -176,7 +177,8 @@ def rank_segment_sum_plain(rows_rank: torch.Tensor, b_incl: torch.Tensor,
     """Plain torch version of kernel B4: [C, GF], row g the sum of
     `rows_rank[:, r]` over g's ranks [b_incl[g] - tiles_touched[g],
     b_incl[g]) within [0, n), taken in float64 and rounded to float32 (a
-    deterministic sum on the CPU)."""
+    deterministic sum on the CPU). b_incl must be the inclusive cumsum of
+    tiles_touched, as `rank_segment_sum` requires."""
     GF, n = rows_rank.shape
     dev = rows_rank.device
     out = torch.zeros((C, GF), dtype=torch.float64, device=dev)
@@ -193,7 +195,15 @@ def rank_segment_sum_plain(rows_rank: torch.Tensor, b_incl: torch.Tensor,
 
 def rank_segment_sum(rows_rank: torch.Tensor, b_incl: torch.Tensor,
                      tiles_touched: torch.Tensor, C: int) -> torch.Tensor:
-    """Kernel B4 on CUDA tensors, its plain version on CPU tensors."""
+    """Kernel B4 on CUDA tensors, its plain version on CPU tensors.
+
+    `rows_rank` is [GF, n], column q the row of rank q. b_incl must be the
+    inclusive cumsum of tiles_touched (as `sorted_bin` and `dense_bin`
+    build it), so that Gaussian g's ranks are [b_incl[g] -
+    tiles_touched[g], b_incl[g]) and the ranks of consecutive slots are
+    one contiguous run: the kernel takes a block's ranks from its first
+    slot's first to its last slot's last, and a segment of another shape
+    would lose ranks without an error."""
     dev = rows_rank.device
     if dev.type == "cpu":
         return rank_segment_sum_plain(rows_rank, b_incl, tiles_touched, C)

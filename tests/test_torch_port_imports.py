@@ -25,7 +25,8 @@ def _imported_roots(path: Path):
 
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) +
-                         [ROOT / "chip_smoke.py", ROOT / "probe_backward.py"],
+                         [ROOT / "chip_smoke.py", ROOT / "probe_backward.py",
+                          ROOT / "probe_b2_b4.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_source_imports_no_jax(path):
     bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))
