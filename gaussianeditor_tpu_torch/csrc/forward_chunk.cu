@@ -10,40 +10,50 @@
 // stays in VMEM between grid steps. Blocks on Hopper run in no order, so
 // here that sequential grid is a loop inside the tile's block: block t
 // walks its chunks [bounds[t], bounds[t+1]) in order (the wrapper builds
-// bounds from the chunk metadata; a tile's live chunks are contiguous and
-// dead chunks trail every tile), carrying T, the accumulators and
-// n_contrib in registers. For each chunk's live rows (lanes below
-// n_valid) it runs kernel B2's per-row arithmetic:
-//   power = -0.5 (a dx^2 + c dy^2) - b dx dy, skipped if > 0;
-//   alpha = min(0.99, opacity * exp(power)), skipped if < 1/255;
-//   if T (1 - alpha) < 1e-4 the pixel is done, without contributing;
-//   else color += alpha T color_i, depth += alpha T depth_i,
-//        T *= 1 - alpha, n_contrib = chunk offset + lane + 1.
-// T is multiplied row by row, not formed as the TPU's exp(prefix sum of
-// log1p(-alpha)), so n_contrib equals B2's on the same view. Outputs:
-// color [T, 256, ch], depth, final_T [T, 256], n_contrib [T, 256] int32;
-// a tile without chunks writes 0, 0, 1, 0.
+// bounds from the chunk metadata; a tile's live chunks are contiguous,
+// all full but the last, and dead chunks trail every tile), carrying the
+// pixel's state in registers, and runs kernel B2's recurrence
+// (composite_forward.cuh) on each chunk's live rows (lanes below
+// n_valid), n_contrib being chunk offset + lane + 1. T is multiplied row
+// by row, not formed as the TPU's exp(prefix sum of log1p(-alpha)), so
+// the outputs equal B2's on the same rows. Outputs: color [T, 256, ch],
+// depth, final_T [T, 256], n_contrib [T, 256] int32; a tile without
+// chunks writes 0, 0, 1, 0.
 //
 // Bound: operations, as for B2: about 19 f32 operations with one exp for
 // each evaluated (pixel, row) pair and 2 ch + 3 more for each
 // contributing one, against 4 (7 + ch) bytes a row read once per tile.
-// Design: each chunk's live rows are staged in shared memory with
-// coalesced loads (neighbouring threads on neighbouring lanes) and read
-// back as broadcasts; the block stops at the first chunk boundary at
-// which every pixel is done (__syncthreads_count). ch 1 and 3 have their
-// own instances, with the accumulators in registers; wider renders take
-// an instance sized for 8 or for 32 channels, looping over the first ch.
+// Design: B2's walk (16-byte row records, the exact pre-test before
+// expf, rows in groups) over batches of two chunks: thread p stages lane
+// p % 128 of the batch's chunk p / 128, so each field is one coalesced
+// 512-byte run, and a lane past its chunk's n_valid, or a chunk past the
+// tile's, is staged as a row every pixel skips, whatever the padding
+// holds. Colors are staged four to a record, zero past ch, so the wide
+// instances (8 and 32 channels, taking 2 and 4-8 and 9-32) update every
+// channel without a guard. The block stops at the first batch at which
+// every pixel is done (__syncthreads_count).
 
-#include <cuda_runtime.h>
+#include "composite_forward.cuh"
 
 namespace {
 
-constexpr int kTile = 16;
-constexpr int kPx = kTile * kTile;  // threads per block: one per pixel
-constexpr int kChunk = 128;         // lanes of a chunk
-constexpr float kAlphaMax = 0.99f;
-constexpr float kAlphaMin = 1.0f / 255.0f;
-constexpr float kTMin = 1e-4f;
+using namespace composite_forward;
+
+constexpr int kChunk = 128;  // lanes of a chunk
+static_assert(kPx == 2 * kChunk, "a batch is two chunks");
+// rows whose power is formed together, by instance (1 and 3 channels, 8,
+// 32); measured on the H100 (probe_b2_b4.py --b5 --tune, which edits these
+// lines): groups of 4 at 8 channels keep 64 registers (4 blocks a SM, where
+// 8 take 80 and 3 blocks); at 32 channels groups of 4 spill and are slower
+constexpr int kGroup = 8;
+constexpr int kGroupMid = 4;
+constexpr int kGroupWide = 8;
+
+template <int CH>
+struct GroupOf {
+  static constexpr int value =
+      CH <= 3 ? kGroup : (CH <= 8 ? kGroupMid : kGroupWide);
+};
 
 // CH: the channel count when it is 1 or 3, else the most channels the
 // instance takes (ch <= CH at run time)
@@ -53,66 +63,46 @@ __global__ void __launch_bounds__(kPx) forward_chunk_kernel(
     const int* __restrict__ offset, const float* __restrict__ inst, int ch,
     int grid_x, float* __restrict__ out_color, float* __restrict__ out_depth,
     float* __restrict__ out_T, int* __restrict__ out_nc) {
-  const int nch = CH <= 3 ? CH : ch;
-  const int P = 7 + nch;
-  __shared__ float rows[7 + CH][kChunk];
+  __shared__ Rows<CH> rows;
 
   const int t = blockIdx.x;
   const int p = threadIdx.x;
   const float px = (float)((t % grid_x) * kTile + p % kTile);
   const float py = (float)((t / grid_x) * kTile + p / kTile);
-
-  float T = 1.0f;
-  float dsum = 0.0f;
-  float acc[CH];
-#pragma unroll
-  for (int c = 0; c < CH; ++c) acc[c] = 0.0f;
-  int last = 0;
-  bool done = false;
-
+  const int c0 = bounds[t];
   const int c1 = bounds[t + 1];
-  for (int c = bounds[t]; c < c1; ++c) {
-    // also the barrier that keeps the previous chunk's rows alive until
-    // every thread has read them
-    if (__syncthreads_count(done) == kPx) break;
-    const int nv = nvalid[c];
-    const int off = offset[c];
-    const float* src = inst + (size_t)c * P * kChunk;
-    for (int idx = p; idx < P * kChunk; idx += kPx) {
-      const int lane = idx % kChunk;
-      if (lane < nv) rows[idx / kChunk][lane] = src[idx];
-    }
-    __syncthreads();
-    for (int i = 0; i < nv && !done; ++i) {
-      const float dx = rows[0][i] - px;
-      const float dy = rows[1][i] - py;
-      const float power = -0.5f * (rows[2][i] * dx * dx + rows[4][i] * dy * dy)
-                          - rows[3][i] * dx * dy;
-      if (power > 0.0f) continue;
-      const float alpha = fminf(kAlphaMax, rows[5][i] * expf(power));
-      if (alpha < kAlphaMin) continue;
-      const float test_T = T * (1.0f - alpha);
-      if (test_T < kTMin) {
-        done = true;
-        break;
-      }
-      const float w = alpha * T;
-#pragma unroll
-      for (int k = 0; k < CH; ++k)
-        if (k < nch) acc[k] += w * rows[7 + k][i];
-      dsum += w * rows[6][i];
-      T = test_T;
-      last = off + i + 1;
-    }
-  }
+  const size_t chunk_floats = (size_t)(7 + ch) * kChunk;
+  // live rows of chunk c: 0 past the tile's chunks
+  auto live = [&](int c) { return c < c1 ? nvalid[c] : 0; };
+  Pixel<CH> q;
 
-  const size_t o = (size_t)t * kPx + p;
-#pragma unroll
-  for (int k = 0; k < CH; ++k)
-    if (k < nch) out_color[o * nch + k] = acc[k];
-  out_depth[o] = dsum;
-  out_T[o] = T;
-  out_nc[o] = last;
+  for (int c = c0; c < c1; c += 2) {
+    // also the barrier that keeps the previous batch's rows alive until
+    // every thread has read them
+    if (__syncthreads_count(q.done) == kPx) break;
+    const int cp = c + p / kChunk;
+    const int lane = p % kChunk;
+    if (lane < live(cp))
+      stage_row(rows, p, inst + cp * chunk_floats + lane, kChunk, ch);
+    else
+      stage_dead(rows, p);
+    __syncthreads();
+    const int nv1 = live(c + 1);
+    const int off0 = offset[c];
+    const int off1 = nv1 > 0 ? offset[c + 1] : 0;
+    walk<CH, GroupOf<CH>::value>(
+        rows, nv1 > 0 ? kChunk + nv1 : live(c), px, py, q, [&](int i) {
+          return (i < kChunk ? off0 : off1) + i % kChunk + 1;
+        });
+  }
+  q.store((size_t)t * kPx + p, ch, out_color, out_depth, out_T, out_nc);
+}
+
+template <int CH>
+cudaError_t occupancy(int* smem, int* blocks) {
+  *smem = 0;  // all of its shared memory is static: sizeof(Rows<CH>)
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, forward_chunk_kernel<CH>, kPx, 0);
 }
 
 }  // namespace
@@ -123,12 +113,11 @@ extern "C" int forward_chunk(const void* bounds, const void* nvalid,
                              void* depth, void* final_T, void* n_contrib,
                              void* stream) {
   if (num_tiles <= 0 || ch < 1 || ch > 32) return (int)cudaErrorInvalidValue;
-  const dim3 grid(num_tiles), block(kPx);
   cudaStream_t s = (cudaStream_t)stream;
-#define LAUNCH(CH)                                                          \
-  forward_chunk_kernel<CH><<<grid, block, 0, s>>>(                          \
-      (const int*)bounds, (const int*)nvalid, (const int*)offset,           \
-      (const float*)inst, ch, grid_x, (float*)color, (float*)depth,         \
+#define LAUNCH(CH)                                                  \
+  forward_chunk_kernel<CH><<<num_tiles, kPx, 0, s>>>(               \
+      (const int*)bounds, (const int*)nvalid, (const int*)offset,   \
+      (const float*)inst, ch, grid_x, (float*)color, (float*)depth, \
       (float*)final_T, (int*)n_contrib)
   if (ch == 1)
     LAUNCH(1);
@@ -140,6 +129,20 @@ extern "C" int forward_chunk(const void* bounds, const void* nvalid,
     LAUNCH(32);
 #undef LAUNCH
   return (int)cudaGetLastError();
+}
+
+extern "C" int forward_chunk_occupancy(int ch, int* smem, int* blocks) {
+  if (ch < 1 || ch > 32) return (int)cudaErrorInvalidValue;
+  cudaError_t e;
+  if (ch == 1)
+    e = occupancy<1>(smem, blocks);
+  else if (ch == 3)
+    e = occupancy<3>(smem, blocks);
+  else if (ch <= 8)
+    e = occupancy<8>(smem, blocks);
+  else
+    e = occupancy<32>(smem, blocks);
+  return (int)e;
 }
 
 extern "C" const char* forward_chunk_error_string(int code) {

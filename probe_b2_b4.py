@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
 """Time kernels B4 (the per-Gaussian gradient sum) and B2 (the forward
-tile compositor) at full width against another build of them, split that
-build's time into its parts, and time the rank-major store layout of B3.
+tile compositor), or B5 (the forward chunk compositor) and B2, at full
+width against another build of them, split that build's time into its
+parts, and time the rank-major store layout of B3.
 
-    python3 probe_b2_b4.py --old DIR [--layout] [--tune] [--out FILE]   # one card
+    python3 probe_b2_b4.py --old DIR [--layout] [--out FILE]              # one card
+    python3 probe_b2_b4.py --b5 --old DIR [--old-only] [--tune] [--out FILE]
 
 The inputs are those of `chip_smoke.py` phases 3 and 6: the 1,000,000-
 Gaussian SH-3 scene (bench.py's recipe, seed 0) loaded from a PLY at 4x
@@ -42,15 +44,34 @@ build of the package's B4 that reads B6's rows in place through
 `a_by_rank` ("indexed", no gathered copy), and their sums must be
 bitwise equal.
 
-`--tune` builds the package's B2 the other ways listed in TUNE (rows
-whose power is formed together, every alpha of a group formed before
-the serial updates, register budgets) and times each in turns against
-the package's build, checking that the outputs are bitwise equal.
 `--layout` builds B3 with an epilogue that writes rank-major rows [n,
 GFp] (GF padded to a multiple of 4) and a build of the package's B4
 that reads them, and times the pair (zero fill, B3, B4) in turns
 against the package's pair over [GF, n]; their sums must be bitwise
 equal.
+
+`--b5`: DIR holds another version of `forward_chunk.cu` and
+`forward_tile.cu` instead (say the parent commit's), with the parent's C
+entry points. On the inputs of `chip_smoke.py` phase 8 (the color view,
+ch 3, and the seeded feature renders at ch 8 and 32, `dense_bin` at the
+default budget; the walk and the longest tile from the color view) the
+old B5 is built as it is, over only its longest tile (a one-block grid),
+with each tile's walk cut to the mean walk ("capped") and with `__expf`,
+and each build timed at every width; the package's B5 over its longest
+tile and capped likewise. It prints the registers, spills and static
+shared memory of every instance, the per-pair loop of both ch-3
+instances (SASS) and the SM clock after each. The old B5 and the
+package's are timed in turns at each width and must be bitwise equal
+there and on `testing.adversarial_rows` (laid into chunks by
+`testing.dense_from_rows`) at ch 1, 3, 8 and 32; the package's B5 must
+be bitwise equal to the package's B2 on the adversarial rows at ch 1 and
+3 and on the color view. DIR's B2 is the guard of the shared walk: the
+package's B2 must be bitwise equal to it on phase 3's two views and on
+the adversarial rows at ch 1-3, and is timed against it in turns.
+`--old-only` stops after the old B5's builds are measured (the package's
+kernels are neither built nor run). `--tune` also builds the package's B5
+with the other group sizes in B5_TUNE and times each in turns against
+the package's build, checking that the outputs are bitwise equal.
 Results go to stdout and, as JSON, to `--out`.
 """
 
@@ -261,16 +282,21 @@ def main() -> int:
     ap.add_argument("--old", type=Path, required=True)
     ap.add_argument("--layout", action="store_true",
                     help="also time B3 and B4 over rank-major rows")
+    ap.add_argument("--b5", action="store_true",
+                    help="measure DIR's B5 and B2 against the package's")
+    ap.add_argument("--old-only", action="store_true",
+                    help="with --b5: measure DIR's B5 builds only")
     ap.add_argument("--tune", action="store_true",
-                    help="also time the TUNE builds of the package's B2")
+                    help="with --b5: also time the B5_TUNE builds")
     ap.add_argument("--out", type=Path, default=Path("build/probe_b2_b4.json"))
     args = ap.parse_args()
+    if (args.old_only or args.tune) and not args.b5:
+        ap.error("--old-only and --tune go with --b5")
     if not torch.cuda.is_available():
         print("probe_b2_b4: needs a CUDA device", file=sys.stderr)
         return 1
-    from gaussianeditor_tpu_torch.core.cameras import lookat_camera
-    from gaussianeditor_tpu_torch.models.gaussians import GaussianScene
-    from gaussianeditor_tpu_torch.models.ply import load_ply, save_ply
+    if args.b5:
+        return main_b5(args)
     from gaussianeditor_tpu_torch.ops import _kernels
     from gaussianeditor_tpu_torch.ops.binning_dense import dense_bin
     from gaussianeditor_tpu_torch.ops.binning_sorted import sorted_bin
@@ -289,7 +315,6 @@ def main() -> int:
         forward_tiles,
         forward_tiles_plain,
     )
-    from gaussianeditor_tpu_torch.testing import adversarial_rows
 
     smi = cs.nvidia_smi()
     print(f"device: {smi}; torch {torch.__version__}", flush=True)
@@ -312,17 +337,7 @@ def main() -> int:
         jobs.update(layout_jobs())
     libs = build(jobs, work)
 
-    with tempfile.TemporaryDirectory() as tmp:
-        arrays = cs.bench_scene_arrays(cs.N_GAUSSIANS, cs.SEED)
-        cpu_scene = GaussianScene.create(
-            {k: torch.from_numpy(v) for k, v in arrays.items()},
-            max_sh_degree=cs.SH_DEGREE, active_sh_degree=cs.SH_DEGREE)
-        ply = os.path.join(tmp, "scene.ply")
-        save_ply(cpu_scene, ply)
-        del cpu_scene, arrays
-        scene = load_ply(ply, capacity=4 * cs.N_GAUSSIANS, device="cuda")
-    cam = lookat_camera((0.0, 0.0, -4.0), (0.0, 0.0, 0.0), (0.0, 1.0, 0.0),
-                        0.8, 0.8, cs.SIZE, cs.SIZE, device="cuda")
+    scene, cam = phase3_scene()
     gx = cs.SIZE // 16
     T = gx * gx
     budget = default_max_instances(scene.capacity)
@@ -335,13 +350,6 @@ def main() -> int:
         sb1 = sorted_bin(mask_proc, gx, gx, budget)
     n = sb.payload.shape[1]
     tt = proc.tiles_touched
-
-    def in_turns(label, old_fn, new_fn):
-        ts = [cs.time_ms(f) for f in (old_fn, new_fn, new_fn, old_fn)]
-        rec = dict(old_ms=[ts[0], ts[3]], new_ms=[ts[1], ts[2]])
-        print(f"{label}: old {ts[0]:.4f} / {ts[3]:.4f} ms, new {ts[1]:.4f} "
-              f"/ {ts[2]:.4f} ms", flush=True)
-        return rec
 
     # ---------------- B4 ----------------
     gen = torch.Generator(device="cuda").manual_seed(cs.SEED + 1)
@@ -479,12 +487,10 @@ def main() -> int:
                for v, e in B2_EDITS.items()}
     # the package's B2 over the longest tile and capped, likewise
     new_b2_src = (_kernels.CSRC_DIR / "forward_tile.cu").read_text()
-    b2_jobs.update({("b2new", v): ("forward_tile", sig, {
-        "forward_tile.cu": edit(new_b2_src, B2_EDITS[v], f"new B2 {v}",
-                                tile0=tile0, cap=cap)})
+    b2_jobs.update({("b2new", v): ("forward_tile", sig, package_files(
+        "forward_tile", edit(new_b2_src, B2_EDITS[v], f"new B2 {v}",
+                             tile0=tile0, cap=cap)))
         for v in ("longest", "capped")})
-    if args.tune:
-        b2_jobs.update(tune_jobs(new_b2_src))
     b2_libs = build(b2_jobs, work)
     result["b2_sass_old"] = sass_loop(b2_libs[("b2", "old")][1],
                                       "forward_tile_kernelILi3E")
@@ -493,97 +499,311 @@ def main() -> int:
     print(f"B2 ch 3 per-pair loop (SASS): old {result['b2_sass_old']}, new "
           f"{result['b2_sass_new']}", flush=True)
 
-    def b2_outputs(ch, npx):
-        return [torch.empty((npx * 256, ch), device="cuda"),
-                torch.empty(npx * 256, device="cuda"),
-                torch.empty(npx * 256, device="cuda"),
-                torch.empty(npx * 256, dtype=torch.int32, device="cuda")]
-
-    def b2_call(fn, bounds, payload, ntiles, grid_x, ch, outs):
-        return lambda: pb.call(fn, bounds, payload, payload.shape[1], ntiles,
-                               grid_x, ch, *outs)
-
     new_b2 = pb.new_fn("forward_tile")
-    for label, b, ch in (("color view", sb, 3), ("mask view", sb1, 1)):
-        o_old, o_new = b2_outputs(ch, T), b2_outputs(ch, T)
-        f_old = b2_call(b2_libs[("b2", "old")][0], b.tile_bounds, b.payload,
-                        T, gx, ch, o_old)
-        f_new = b2_call(new_b2, b.tile_bounds, b.payload, T, gx, ch, o_new)
-        f_old()
-        f_new()
-        torch.cuda.synchronize()
-        eq = all(torch.equal(x, y) for x, y in zip(o_old, o_new))
-        print(f"B2 {label} (ch {ch}) new vs old: color, depth, final_T and "
-              f"n_contrib bitwise equal {eq}", flush=True)
-        rec = dict(bitwise_equal=eq,
-                   turns=in_turns(f"B2 {label} (ch {ch})", f_old, f_new))
-        if ch == 3:
-            split = {}
-            for v in B2_EDITS:
-                grid = 1 if v == "longest" else T
-                o = b2_outputs(ch, T)
-                split[v] = cs.time_ms(b2_call(b2_libs[("b2", v)][0],
-                                              b.tile_bounds, b.payload, grid,
-                                              gx, ch, o))
-            print(f"B2 split of the old kernel, {label} (ms; longest tile "
-                  f"{tile0}, {int(walk[tile0])} rows walked; cap {cap} "
-                  f"rows): {split}", flush=True)
-            rec["split_ms"] = split
-            rec["new_split_ms"] = {v: cs.time_ms(b2_call(
-                b2_libs[("b2new", v)][0], b.tile_bounds, b.payload,
-                1 if v == "longest" else T, gx, ch, b2_outputs(ch, T)))
-                for v in ("longest", "capped")}
-            print(f"B2 the package's kernel over the longest tile and "
-                  f"capped (ms): {rec['new_split_ms']}", flush=True)
-        if ch == 3:
-            rec["sm_clock"] = sm_clock(libs[("clock",)][0], f_new)
-        result[f"b2_ch{ch}"] = rec
-    for var, *_ in (TUNE if args.tune else ()):
-        rec = {}
-        for label, b, ch in (("color view", sb, 3), ("mask view", sb1, 1)):
-            o_pkg, o_var = b2_outputs(ch, T), b2_outputs(ch, T)
-            f_pkg = b2_call(new_b2, b.tile_bounds, b.payload, T, gx, ch,
-                            o_pkg)
-            f_var = b2_call(b2_libs[("tune", var)][0], b.tile_bounds,
-                            b.payload, T, gx, ch, o_var)
-            f_pkg()
-            f_var()
-            torch.cuda.synchronize()
-            ts = [cs.time_ms(f) for f in (f_pkg, f_var, f_var, f_pkg)]
-            rec[f"ch{ch}"] = dict(
-                bitwise_equal=all(torch.equal(x, y)
-                                  for x, y in zip(o_pkg, o_var)),
-                package_ms=[ts[0], ts[3]], ms=ts[1:3])
-        print(f"B2 {var} against the package's build: {rec}", flush=True)
-        result[f"b2_tune_{var}"] = rec
-    adv = {}
-    for ch in (1, 2, 3):
-        start, cnt_a, payload, agx = adversarial_rows(20 + ch, ch,
-                                                      device="cuda")
-        bounds = torch.cat([start, start[-1:] + cnt_a[-1:]]).to(torch.int32)
-        nt = start.shape[0]
-        o_old, o_new = b2_outputs(ch, nt), b2_outputs(ch, nt)
-        b2_call(b2_libs[("b2", "old")][0], bounds, payload, nt, agx, ch,
-                o_old)()
-        b2_call(new_b2, bounds, payload, nt, agx, ch, o_new)()
-        torch.cuda.synchronize()
-        adv[ch] = all(torch.equal(x, y) for x, y in zip(o_old, o_new))
-    print(f"B2 new vs old on adversarial_rows, bitwise equal by ch: {adv}",
-          flush=True)
-    result["b2_adversarial_bitwise_equal"] = adv
+    result.update(b2_against(b2_libs[("b2", "old")][0], new_b2, sb, sb1, gx))
+    rec = result["b2_ch3"]
 
-    args.out.parent.mkdir(parents=True, exist_ok=True)
-    args.out.write_text(json.dumps(result, indent=1))
-    print(json.dumps(result))
+    def b2_cut(key, v):
+        return cs.time_ms(b2_call(b2_libs[(key, v)][0], sb.tile_bounds,
+                                  sb.payload, 1 if v == "longest" else T, gx,
+                                  3, b2_outputs(3, T)))
+
+    rec["split_ms"] = {v: b2_cut("b2", v) for v in B2_EDITS}
+    print(f"B2 split of the old kernel, color view (ms; longest tile "
+          f"{tile0}, {int(walk[tile0])} rows walked; cap {cap} rows): "
+          f"{rec['split_ms']}", flush=True)
+    rec["new_split_ms"] = {v: b2_cut("b2new", v) for v in ("longest", "capped")}
+    print(f"B2 the package's kernel over the longest tile and capped (ms): "
+          f"{rec['new_split_ms']}", flush=True)
+    rec["sm_clock"] = sm_clock(libs[("clock",)][0], b2_call(
+        new_b2, sb.tile_bounds, sb.payload, T, gx, 3, b2_outputs(3, T)))
+    adv = result["b2_adversarial_bitwise_equal"]
+
     ok = (result["b4"]["bitwise_equal"] and result["b4_dense"]["bitwise_equal"]
           and result["b4_dense"]["indexed_bitwise_equal"]
           and result.get("layout", {}).get("bitwise_equal", True)
           and result["b2_ch3"]["bitwise_equal"]
           and result["b2_ch1"]["bitwise_equal"] and all(adv.values()))
+    return finish(args, result, ok)
+
+
+def phase3_scene():
+    """`chip_smoke.py`'s scene as the viewer loads it (a PLY at 4x
+    capacity) on the card, and phase 3's view."""
+    import torch
+
+    from gaussianeditor_tpu_torch.core.cameras import lookat_camera
+    from gaussianeditor_tpu_torch.models.gaussians import GaussianScene
+    from gaussianeditor_tpu_torch.models.ply import load_ply, save_ply
+
+    with tempfile.TemporaryDirectory() as tmp:
+        arrays = cs.bench_scene_arrays(cs.N_GAUSSIANS, cs.SEED)
+        cpu_scene = GaussianScene.create(
+            {k: torch.from_numpy(v) for k, v in arrays.items()},
+            max_sh_degree=cs.SH_DEGREE, active_sh_degree=cs.SH_DEGREE)
+        ply = os.path.join(tmp, "scene.ply")
+        save_ply(cpu_scene, ply)
+        del cpu_scene, arrays
+        scene = load_ply(ply, capacity=4 * cs.N_GAUSSIANS, device="cuda")
+    cam = lookat_camera((0.0, 0.0, -4.0), (0.0, 0.0, 0.0), (0.0, 1.0, 0.0),
+                        0.8, 0.8, cs.SIZE, cs.SIZE, device="cuda")
+    return scene, cam
+
+
+# the parent's B5 (csrc/forward_chunk.cu) in its builds, and the same cuts
+# of the package's B5; {tile0} and {cap} are filled in from the scene
+_C1 = "  const int c1 = bounds[t + 1];\n"
+_C1_CAPPED = ("  const int c1 = min(bounds[t + 1], bounds[t] + ({cap} + kChunk - 1)"
+              " / kChunk);\n")
+B5_EDITS = {
+    "old": [],
+    "longest": B2_EDITS["longest"],
+    "capped": [(_C1, _C1_CAPPED),
+               ("    const int nv = nvalid[c];\n",
+                "    const int nv = min(nvalid[c], {cap} - (c - bounds[t]) * "
+                "kChunk);\n")],
+    "fastexp": [("expf(power)", "__expf(power)")],
+}
+B5_NEW_EDITS = {
+    "longest": B2_EDITS["longest"],
+    "capped": [(_C1, _C1_CAPPED),
+               ("  auto live = [&](int c) { return c < c1 ? nvalid[c] : 0; };\n",
+                "  auto live = [&](int c) {\n    return c < c1 ? max(0, min("
+                "nvalid[c], {cap} - (c - c0) * kChunk)) : 0;\n  };\n")],
+}
+# other group sizes of the package's B5: (name, constant, value); one
+# equal to the source's own value is skipped
+B5_TUNE = (("g4", "kGroup", 4), ("g16", "kGroup", 16),
+           ("mid_g4", "kGroupMid", 4), ("mid_g8", "kGroupMid", 8),
+           ("wide_g4", "kGroupWide", 4), ("wide_g8", "kGroupWide", 8))
+
+
+def b5_tune_jobs(src: str) -> dict:
+    from gaussianeditor_tpu_torch.ops import _kernels
+
+    jobs = {}
+    for var, name, value in B5_TUNE:
+        line = re.search(rf"constexpr int {name} = (\d+);", src)
+        if int(line.group(1)) == value:
+            continue
+        jobs[("tune", var)] = ("forward_chunk",
+                               _kernels.SIGNATURES["forward_chunk"],
+                               package_files("forward_chunk", src.replace(
+                                   line.group(0),
+                                   f"constexpr int {name} = {value};")))
+    return jobs
+
+
+def main_b5(args) -> int:
+    """The B5 part (`--b5`): see the module's docstring."""
+    import torch
+
+    from gaussianeditor_tpu_torch.ops import _kernels
+    from gaussianeditor_tpu_torch.ops.binning_dense import dense_bin
+    from gaussianeditor_tpu_torch.ops.binning_sorted import sorted_bin
+    from gaussianeditor_tpu_torch.ops.dense_composite import (
+        forward_chunks_plain,
+        pack_instances,
+        tile_chunk_bounds,
+    )
+    from gaussianeditor_tpu_torch.ops.render import (
+        default_max_instances,
+        preprocess_scene,
+    )
+    from gaussianeditor_tpu_torch.testing import (
+        adversarial_rows,
+        dense_from_rows,
+    )
+
+    smi = cs.nvidia_smi()
+    print(f"device: {smi}; torch {torch.__version__}", flush=True)
+    result = {"device": smi}
+    old_b5 = (args.old / "forward_chunk.cu").read_text()
+    old_b2 = (args.old / "forward_tile.cu").read_text()
+
+    scene, cam = phase3_scene()
+    gx = cs.SIZE // 16
+    T = gx * gx
+    budget = default_max_instances(scene.capacity)
+    views = {}          # ch: (dense binning, instances, chunk bounds)
+    with torch.no_grad():
+        proc = preprocess_scene(scene, cam)
+        for p in (proc, *cs.feature_views(scene, cam)):
+            db = dense_bin(p, gx, gx, budget)
+            assert not bool(db.overflow)
+            inst = pack_instances(p.mean2d, p.conic, p.opacity, p.color,
+                                  p.depth, db)
+            views[inst.shape[1] - 7] = (db, inst, tile_chunk_bounds(db))
+
+    # the walk: rows until a tile's last pixel is done
+    db3, inst3, bounds3 = views[3]
+    _, evaluated, contributed = forward_chunks_plain(inst3, db3, gx)
+    walk = evaluated.max(dim=1).values
+    tile0 = int(walk.argmax())
+    cap = int(round(float(walk.float().mean())))
+    chunks = (bounds3[1:] - bounds3[:-1]).long()
+    result["b5_walk"] = dict(
+        walk_max=int(walk.max()), walk_p99=float(torch.quantile(
+            walk.float(), 0.99)), walk_mean=float(walk.float().mean()),
+        longest_tile=tile0, longest_tile_chunks=int(chunks[tile0]),
+        chunks_max=int(chunks.max()), chunks_mean=float(chunks.float().mean()),
+        pairs_evaluated=int(evaluated.sum()),
+        pairs_contributing=int(contributed.sum()))
+    print(f"B5 walk per tile (rows until its last pixel is done): "
+          f"{result['b5_walk']}", flush=True)
+    del evaluated, contributed
+
+    sig = _kernels.SIGNATURES["forward_chunk"]
+    jobs = {("b5", v): ("forward_chunk", sig, {
+        "forward_chunk.cu": edit(old_b5, e, f"B5 {v}", tile0=tile0, cap=cap)})
+        for v, e in B5_EDITS.items()}
+    jobs[("clock",)] = ("sm_clock", (_L, _I, _P, _P),
+                        {"sm_clock.cu": SM_CLOCK})
+    new_src = (_kernels.CSRC_DIR / "forward_chunk.cu").read_text()
+    if not args.old_only:
+        jobs.update({("b5new", v): ("forward_chunk", sig, package_files(
+            "forward_chunk", edit(new_src, e, f"new B5 {v}", tile0=tile0,
+                                  cap=cap)))
+            for v, e in B5_NEW_EDITS.items()})
+        jobs[("b2", "old")] = ("forward_tile",
+                               _kernels.SIGNATURES["forward_tile"],
+                               {"forward_tile.cu": old_b2})
+        if args.tune:
+            jobs.update(b5_tune_jobs(new_src))
+    libs = build(jobs, Path("build/probe_b5"))
+    clock = libs[("clock",)][0]
+
+    def b5(fn, ch, outs, grid=T):
+        db, inst, bounds = views[ch]
+        return lambda: pb.call(fn, bounds, db.chunk_nvalid, db.chunk_offset,
+                               inst, grid, gx, ch, *outs)
+
+    def cuts(key, variants):
+        out = {ch: {v: cs.time_ms(b5(libs[(key, v)][0], ch, b2_outputs(ch, T),
+                                     1 if v == "longest" else T))
+                    for v in variants} for ch in views}
+        print(f"B5 {key} builds by width (ms; longest tile {tile0}, "
+              f"{int(walk[tile0])} rows walked; cap {cap} rows): {out}",
+              flush=True)
+        return out
+
+    result["b5_sass_old"] = sass_loop(libs[("b5", "old")][1],
+                                      "forward_chunk_kernelILi3E")
+    print(f"B5 ch 3 per-pair loop (SASS), old: {result['b5_sass_old']}",
+          flush=True)
+    result["b5_split_ms"] = cuts("b5", B5_EDITS)
+    result["b5_sm_clock_old"] = sm_clock(
+        clock, b5(libs[("b5", "old")][0], 3, b2_outputs(3, T)), "the old B5")
+    if args.old_only:
+        return finish(args, result, True)
+
+    _kernels.build()
+    for name in ("forward_chunk", "forward_tile"):
+        print_resources(f"{name} new", _kernels.BUILD_LOG.get(name, ""))
+    result["b5_sass_new"] = sass_loop(_kernels._lib_path("forward_chunk"),
+                                      "forward_chunk_kernelILi3E")
+    print(f"B5 ch 3 per-pair loop (SASS), new: {result['b5_sass_new']}",
+          flush=True)
+    new_b5 = pb.new_fn("forward_chunk")
+    new_b2 = pb.new_fn("forward_tile")
+    with torch.no_grad():
+        mask_proc = preprocess_scene(
+            scene, cam, override_color=scene.mask[:, None].to(torch.float32))
+        sb = sorted_bin(proc, gx, gx, budget)
+        sb1 = sorted_bin(mask_proc, gx, gx, budget)
+    ok = True
+    for ch in views:
+        o_old, o_new = b2_outputs(ch, T), b2_outputs(ch, T)
+        f_old = b5(libs[("b5", "old")][0], ch, o_old)
+        f_new = b5(new_b5, ch, o_new)
+        f_old()
+        f_new()
+        torch.cuda.synchronize()
+        eq = equal_outputs(o_old, o_new)
+        ok &= eq
+        print(f"B5 ch {ch} new vs old: color, depth, final_T and n_contrib "
+              f"bitwise equal {eq}", flush=True)
+        result[f"b5_ch{ch}"] = dict(
+            bitwise_equal=eq, turns=in_turns(f"B5 ch {ch}", f_old, f_new))
+        if ch == 3:
+            # B2 on the same view's sorted rows, through the same walk
+            o_b2 = b2_outputs(3, T)
+            b2_call(new_b2, sb.tile_bounds, sb.payload, T, gx, 3, o_b2)()
+            torch.cuda.synchronize()
+            eq = equal_outputs(o_new, o_b2)
+            ok &= eq
+            print(f"B5 vs B2 on the color view: bitwise equal {eq}",
+                  flush=True)
+            result["b5_vs_b2_color_view_bitwise_equal"] = eq
+    result["b5_new_split_ms"] = cuts("b5new", B5_NEW_EDITS)
+    result["b5_sm_clock_new"] = sm_clock(
+        clock, b5(new_b5, 3, b2_outputs(3, T)), "the package's B5")
+
+    adv = {}
+    for ch in (1, 3, 8, 32):
+        start, cnt, payload, agx = adversarial_rows(60 + ch, ch,
+                                                    device="cuda")
+        inst, db = dense_from_rows(start, cnt, payload)
+        bounds = tile_chunk_bounds(db)
+        nt = start.shape[0]
+        outs = {k: b2_outputs(ch, nt) for k in ("old", "new", "b2")}
+        for k, fn in (("old", libs[("b5", "old")][0]), ("new", new_b5)):
+            pb.call(fn, bounds, db.chunk_nvalid, db.chunk_offset, inst, nt,
+                    agx, ch, *outs[k])
+        if ch <= 3:
+            b2_call(new_b2, torch.cat([start, start[-1:] + cnt[-1:]]).to(
+                torch.int32), payload, nt, agx, ch, outs["b2"])()
+        torch.cuda.synchronize()
+        adv[ch] = dict(vs_old=equal_outputs(outs["old"], outs["new"]))
+        if ch <= 3:
+            adv[ch]["vs_b2"] = equal_outputs(outs["b2"], outs["new"])
+        ok &= all(adv[ch].values())
+    print(f"B5 new vs old (and vs B2 at ch <= 3) on adversarial_rows, "
+          f"bitwise equal by ch: {adv}", flush=True)
+    result["b5_adversarial_bitwise_equal"] = adv
+
+    # the guard of the shared walk: B2 against DIR's
+    result.update(b2_against(libs[("b2", "old")][0], new_b2, sb, sb1, gx))
+    ok &= (result["b2_ch3"]["bitwise_equal"] and result["b2_ch1"]["bitwise_equal"]
+           and all(result["b2_adversarial_bitwise_equal"].values()))
+
+    for var, *_ in B5_TUNE:
+        if ("tune", var) not in libs:
+            continue
+        rec = {}
+        for ch in views:
+            o_pkg, o_var = b2_outputs(ch, T), b2_outputs(ch, T)
+            f_pkg = b5(new_b5, ch, o_pkg)
+            f_var = b5(libs[("tune", var)][0], ch, o_var)
+            f_pkg()
+            f_var()
+            torch.cuda.synchronize()
+            ts = [cs.time_ms(f) for f in (f_pkg, f_var, f_var, f_pkg)]
+            rec[ch] = dict(bitwise_equal=equal_outputs(o_pkg, o_var),
+                           package_ms=[ts[0], ts[3]], ms=ts[1:3])
+        print(f"B5 {var} against the package's build: {rec}", flush=True)
+        result[f"b5_tune_{var}"] = rec
+    return finish(args, result, ok)
+
+
+def finish(args, result: dict, ok: bool) -> int:
+    """Write `result` to `--out` and stdout; 0 if every check held."""
+    args.out.parent.mkdir(parents=True, exist_ok=True)
+    args.out.write_text(json.dumps(result, indent=1))
+    print(json.dumps(result))
     return 0 if ok else 2
 
 
-def sm_clock(fn, load) -> dict:
+def in_turns(label, old_fn, new_fn) -> dict:
+    """`old_fn` and `new_fn` timed in turns: old, new, new, old."""
+    ts = [cs.time_ms(f) for f in (old_fn, new_fn, new_fn, old_fn)]
+    rec = dict(old_ms=[ts[0], ts[3]], new_ms=[ts[1], ts[2]])
+    print(f"{label}: old {ts[0]:.4f} / {ts[3]:.4f} ms, new {ts[1]:.4f} "
+          f"/ {ts[2]:.4f} ms", flush=True)
+    return rec
+
+
+def sm_clock(fn, load, label: str = "B2") -> dict:
     """The SM clock in MHz: `fn` (SM_CLOCK) spinning on every SM right
     after 200 calls of `load`, from clock64 over the global timer; and
     nvidia-smi's clocks.sm and clocks.max.sm read just after."""
@@ -603,8 +823,81 @@ def sm_clock(fn, load) -> dict:
     mhz = v[:, 0] / v[:, 1] * 1e3
     rec = dict(measured_mhz_min=float(mhz.min()),
                measured_mhz_median=float(mhz.median()), nvidia_smi=smi)
-    print(f"SM clock after B2: {rec}", flush=True)
+    print(f"SM clock after {label}: {rec}", flush=True)
     return rec
+
+
+def b2_outputs(ch, ntiles):
+    """Empty color, depth, final_T and n_contrib of `ntiles` tiles."""
+    import torch
+
+    return [torch.empty((ntiles * 256, ch), device="cuda"),
+            torch.empty(ntiles * 256, device="cuda"),
+            torch.empty(ntiles * 256, device="cuda"),
+            torch.empty(ntiles * 256, dtype=torch.int32, device="cuda")]
+
+
+def b2_call(fn, bounds, payload, ntiles, grid_x, ch, outs):
+    """A B2 build's raw C call over `ntiles` tiles, into `outs`."""
+    return lambda: pb.call(fn, bounds, payload, payload.shape[1], ntiles,
+                           grid_x, ch, *outs)
+
+
+def equal_outputs(a, b) -> bool:
+    import torch
+
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def b2_against(old_fn, new_fn, sb, sb1, gx) -> dict:
+    """B2 builds `old_fn` and `new_fn` on phase 3's color view `sb` (ch 3)
+    and mask view `sb1` (ch 1): bitwise equal, timed in turns; and bitwise
+    equal on `adversarial_rows` at ch 1, 2 and 3."""
+    import torch
+
+    from gaussianeditor_tpu_torch.testing import adversarial_rows
+
+    T = gx * gx
+    out = {}
+    for label, b, ch in (("color view", sb, 3), ("mask view", sb1, 1)):
+        o_old, o_new = b2_outputs(ch, T), b2_outputs(ch, T)
+        f_old = b2_call(old_fn, b.tile_bounds, b.payload, T, gx, ch, o_old)
+        f_new = b2_call(new_fn, b.tile_bounds, b.payload, T, gx, ch, o_new)
+        f_old()
+        f_new()
+        torch.cuda.synchronize()
+        eq = equal_outputs(o_old, o_new)
+        print(f"B2 {label} (ch {ch}) new vs old: color, depth, final_T and "
+              f"n_contrib bitwise equal {eq}", flush=True)
+        out[f"b2_ch{ch}"] = dict(
+            bitwise_equal=eq,
+            turns=in_turns(f"B2 {label} (ch {ch})", f_old, f_new))
+    adv = {}
+    for ch in (1, 2, 3):
+        start, cnt, payload, agx = adversarial_rows(20 + ch, ch,
+                                                    device="cuda")
+        bounds = torch.cat([start, start[-1:] + cnt[-1:]]).to(torch.int32)
+        nt = start.shape[0]
+        o_old, o_new = b2_outputs(ch, nt), b2_outputs(ch, nt)
+        b2_call(old_fn, bounds, payload, nt, agx, ch, o_old)()
+        b2_call(new_fn, bounds, payload, nt, agx, ch, o_new)()
+        torch.cuda.synchronize()
+        adv[ch] = equal_outputs(o_old, o_new)
+    print(f"B2 new vs old on adversarial_rows, bitwise equal by ch: {adv}",
+          flush=True)
+    out["b2_adversarial_bitwise_equal"] = adv
+    return out
+
+
+def package_files(name: str, src: str) -> dict:
+    """The files of a build of the package's kernel `name` from source
+    `src`: the source first, then every header of `csrc/`."""
+    from gaussianeditor_tpu_torch.ops import _kernels
+
+    files = {f"{name}.cu": src}
+    files.update({h.name: h.read_text()
+                  for h in sorted(_kernels.CSRC_DIR.glob("*.cuh"))})
+    return files
 
 
 def _new_b4(rows, b_incl, tt, C, out):
@@ -670,53 +963,6 @@ _B3_STORE = "[&](int k, float v) { out[(size_t)k * n + r] = v; });"
 _B3_STORE_RM = "[&](int k, float v) { out[(size_t)r * ((P + 3) & ~3) + k] = v; });"
 
 
-# Other builds of the package's B2, timed against it: (name, rows whose
-# power is formed together, blocks per SM the registers are set for)
-TUNE = (
-    ("g4", 4, None),
-    ("g16", 16, None),
-    ("alpha8", 8, None),
-    ("g8_b5", 8, 5),
-    ("g8_b6", 8, 6),
-)
-# the "alpha" builds form every passing row's alpha (its expf) for the
-# whole group before the serial updates, instead of row by row
-_SERIAL = """        if (!pass[j]) continue;
-        const float4 r1 = rec1[i + j];
-        const float alpha = fminf(kAlphaMax, r1.y * expf(power[j]));
-        if (alpha < kAlphaMin) continue;"""
-_ALPHA_FIRST = """        if (!(alphas[j] >= kAlphaMin)) continue;
-        const float4 r1 = rec1[i + j];
-        const float alpha = alphas[j];"""
-_GROUP_GATE = "      if (!any) continue;\n"
-_ALPHAS = """      if (!any) continue;
-      float alphas[kGroup];
-#pragma unroll
-      for (int j = 0; j < kGroup; ++j)
-        alphas[j] = pass[j] ? fminf(kAlphaMax, rec1[i + j].y * expf(power[j]))
-                            : 0.0f;
-"""
-
-
-def tune_jobs(src: str) -> dict:
-    from gaussianeditor_tpu_torch.ops import _kernels
-
-    jobs = {}
-    for var, group, blocks in TUNE:
-        line = re.search(r"constexpr int kGroup = \d+;", src).group(0)
-        edits = [(line, f"constexpr int kGroup = {group};")]
-        if var.startswith("alpha"):
-            edits += [(_GROUP_GATE, _ALPHAS), (_SERIAL, _ALPHA_FIRST)]
-        if blocks:
-            edits.append(("__launch_bounds__(kPx) forward_tile_kernel(",
-                          f"__launch_bounds__(kPx, {blocks}) "
-                          "forward_tile_kernel("))
-        jobs[("tune", var)] = ("forward_tile",
-                               _kernels.SIGNATURES["forward_tile"],
-                               {"forward_tile.cu": edit(src, edits, var)})
-    return jobs
-
-
 def layout_jobs() -> dict:
     from gaussianeditor_tpu_torch.ops import _kernels
 
@@ -725,8 +971,7 @@ def layout_jobs() -> dict:
                [(_B3_STORE, _B3_STORE_RM)], "B3 rank-major")
     return {("b3", "rank_major"): (
         "backward_tile", _kernels.SIGNATURES["backward_tile"],
-        {"backward_tile.cu": src,
-         "composite_backward.cuh": (csrc / "composite_backward.cuh").read_text()})}
+        package_files("backward_tile", src))}
 
 
 def time_layout(libs, b3_args, rows, b_incl, tt, C, in_turns) -> dict:

@@ -296,6 +296,42 @@ def test_forward_chunk_kernel_matches_plain(cuda, ch):
         forward_chunks(wide, db, gx)
 
 
+@pytest.mark.parametrize("ch", [1, 3, 8, 32])
+def test_forward_chunk_kernel_adversarial(cuda, ch):
+    """B5 on the adversarial rows laid out in chunks of 128: partial last
+    chunks, tiles of an odd chunk count, walks that end inside a chunk.
+    Within the image bounds of its plain version, bitwise repeatable,
+    blind to what the padding lanes hold, and at ch 1 and 3 bitwise equal
+    to B2 on the same rows."""
+    start, cnt, payload, gx = adversarial_rows(60 + ch, ch, device=cuda)
+    inst, db = dense_from_rows(start, cnt, payload)
+    T = start.shape[0]
+    got = forward_chunks(inst, db, gx)
+    again = forward_chunks(inst, db, gx)
+    pad = (torch.arange(128, device=cuda)[None, :]
+           >= db.chunk_nvalid[:, None])[:, None, :]
+    junk = torch.rand(inst.shape, generator=torch.Generator().manual_seed(ch)
+                      ).to(cuda) * 2e3 - 1e3
+    dirty = forward_chunks(torch.where(pad, junk, inst), db, gx)
+    want = forward_chunks_plain(inst, db, gx)[0]
+    torch.cuda.synchronize()
+    assert got.color.shape == (T, 256, ch)
+    assert_images_close(got.color, want.color, name="color")
+    assert_images_close(got.depth, want.depth, loose=2e-2, name="depth")
+    assert_images_close(got.final_T, want.final_T, name="final_T")
+    assert torch.equal(got.n_contrib, want.n_contrib)
+    for a, b, c in zip(got, again, dirty):
+        assert torch.equal(a, b)
+        assert torch.equal(a, c)
+    if ch <= 3:
+        bounds = torch.cat([start, start[-1:] + cnt[-1:]]).to(torch.int32)
+        sb = SortedBinning(payload=payload, rank=None, tile_nonempty=cnt > 0,
+                           tile_bounds=bounds, b_incl=None, num_rendered=None,
+                           overflow=None)
+        for a, b in zip(got, forward_tiles(sb, gx, ch)):
+            assert torch.equal(a, b)
+
+
 @pytest.mark.parametrize("ch", [1, 3, 8, 16, 32])
 def test_backward_chunk_kernel_matches_plain(cuda, ch):
     db, inst, gx = _dense_view(cuda, ch, seed=6)

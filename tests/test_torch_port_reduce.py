@@ -6,10 +6,10 @@ needs (the inclusive cumsum of tiles_touched); the dense route's gather
 numpy emulation of the kernel's walk (one block per range of slots, the
 block's ranks staged in pieces and groups of fields, each slot's segment
 added in double in rank order) gives the sequential float64 sums,
-rounded once, bit for bit, on B3's rows and on B6's gathered. B2
-(`csrc/forward_tile.cu`): its pre-test `power < thr` never skips a pair
-whose float32 alpha reaches 1/255. The kernels' constants are read from
-their sources.
+rounded once, bit for bit, on B3's rows and on B6's gathered. B2 and B5
+(the walk of `csrc/composite_forward.cuh`): their pre-test `power < thr`
+never skips a pair whose float32 alpha reaches 1/255. The kernels'
+constants are read from their sources.
 """
 
 import re
@@ -44,7 +44,7 @@ def _constant(source: str, name: str) -> float:
 B4_SLOTS = int(_constant("rank_segment_sum.cu", "kSlots"))
 B4_PIECE = int(_constant("rank_segment_sum.cu", "kPiece"))
 B4_FIELDS = int(_constant("rank_segment_sum.cu", "kFields"))
-B2_MARGIN = np.float32(_constant("forward_tile.cu", "kMargin"))
+B2_MARGIN = np.float32(_constant("composite_forward.cuh", "kMargin"))
 
 
 def _rows(gf, n, seed):
@@ -224,7 +224,7 @@ ALPHA_MAX = np.float32(0.99)
 
 
 def _thr(op):
-    """forward_tile.cu's thr_of(op) in float32."""
+    """composite_forward.cuh's thr_of(op) in float32."""
     one, k255 = np.float32(1.0), np.float32(255.0)
     return np.float32(np.log(one / (k255 * op))) - B2_MARGIN
 
