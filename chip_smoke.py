@@ -71,6 +71,30 @@ Phases, in order; any failure exits non-zero:
      and everything stay finite, and its losses are printed beside phase
      7's first 6; one step twice from a copied state bitwise equal; one
      step profiled.
+ 10. the edit loop at full width: the scene loaded again from the PLY at
+     4x capacity, 8 orbit views at 512x512, `EditSystem` with
+     configs/edit.yaml's `system` values (hard-coded: PyYAML is not
+     needed) for 30 steps at batch 2, a densify step at step 10 (its
+     gradient threshold, by phase 7's rule, the 99.9th percentile of the
+     accumulated gradients, here over the traced Gaussians), a
+     checkpoint at step 20, the fake guidance, semantic tracing with a
+     fake segmentor whose reference color is view 0's centre (its radius
+     bisected until 10-50% of the Gaussians are traced), and LPIPS with
+     random weights. With the launch
+     counts zeroed before each part: the origin renders (B1, B2), the
+     tracing (B1, B4) and the steps (B1-B4) must launch their kernels and
+     B5 and B6 none. The mask must select 1-99% of the alive Gaussians;
+     tracing twice must repeat bitwise, and B4's per-Gaussian sums of the
+     tracing rows must equal an int64 `index_add_` on the counts and
+     come within 1e-5 of each column's RMS of a float64 one on the
+     weights. The callback must fire 30 times in order, with the densify
+     info at step 10; the mean loss_l1 of the last 5 steps must be below
+     that of the first 5; everything finite. A second system resumed from
+     the step-20 checkpoint must end its 10 steps bitwise equal to the
+     uninterrupted run. Printed: on_fit_start's time (origin renders,
+     tracing per view), step medians (refresh and plain steps apart), the
+     densify step, the checkpoint's size, write and load times, the peak
+     device memory, and a profile of one tracing view and of one step.
 Then it prints the kernels' JSON line, the card's name and power limit,
 and, last, {"ok": true, "device": {...}}.
 """
@@ -114,6 +138,13 @@ LR_SCALERS = dict(gs_lr_scaler=3.0, gs_final_lr_scaler=2.0,
                   color_lr_scaler=3.0, opacity_lr_scaler=2.0,
                   scaling_lr_scaler=2.0, rotation_lr_scaler=2.0)
 EDIT_MAX_STEPS = 2000
+# phase 10: the edit loop
+EDIT_VIEWS = 8
+EDIT_STEPS = 30              # max_steps and edit_until_step
+EDIT_REFRESH = 10            # per_editing_step and densification_interval
+EDIT_DENSIFY_UNTIL = 20      # one densify step, at step 10
+EDIT_CHECKPOINT = 20         # checkpoint_every: one checkpoint, after step 19
+EDIT_PROMPT = "Turn him into a clown"   # configs/edit.yaml
 
 
 def nvidia_smi() -> str:
@@ -1011,7 +1042,8 @@ def phase_train(scene, cameras_extent: float) -> dict:
     assert info["n_cloned"] + info["n_split"] > 0, "densify did nothing"
     check_repeat(step, state, cams, targets, "train")
     return dict(counts=counts, stats=stats, optim=optim, cams=cams,
-                targets=targets, l1=[float(m["loss_l1"]) for _, m in hist])
+                targets=targets, l1=[float(m["loss_l1"]) for _, m in hist],
+                thres=thres)
 
 
 def phase_train_dense(tr: dict, ply: str) -> dict:
@@ -1062,6 +1094,354 @@ def phase_train_dense(tr: dict, ply: str) -> dict:
           flush=True)
     check_repeat(step, state, cams, targets, "train (dense route)")
     return counts
+
+
+def edit_config(thres: float, cameras_extent: float, ckpt_dir: str = ""):
+    """configs/edit.yaml's `system` block, written out (PyYAML is not
+    needed), with phase 10's changes: 30 steps with targets refreshed
+    every 10 until step 30, one densify step (at step 10, gradient
+    threshold `thres`), a checkpoint every 20 steps when `ckpt_dir` is
+    set, a semantic prompt, synchronous guidance and the per-step loop."""
+    from gaussianeditor_tpu_torch.edit.edit_system import EditConfig
+    from gaussianeditor_tpu_torch.train.trainer import LossWeights
+
+    return EditConfig(
+        prompt=EDIT_PROMPT, seg_prompt="the object", mask_thres=0.5,
+        batch_size=2, max_steps=EDIT_STEPS, per_editing_step=EDIT_REFRESH,
+        edit_begin_step=0, edit_until_step=EDIT_STEPS,
+        densify_until_step=EDIT_DENSIFY_UNTIL,
+        densification_interval=EDIT_REFRESH, densify_grad_threshold=thres,
+        max_densify_percent=0.01, anchor_weight_init_g0=0.05,
+        anchor_weight_init=0.1, anchor_weight_multiplier=1.3,
+        loss=LossWeights(lambda_l1=10.0, lambda_p=10.0,
+                         lambda_anchor_color=5.0, lambda_anchor_geo=50.0,
+                         lambda_anchor_scale=50.0,
+                         lambda_anchor_opacity=50.0),
+        cameras_extent=cameras_extent, seed=SEED,
+        checkpoint_every=EDIT_CHECKPOINT if ckpt_dir else 0,
+        checkpoint_dir=ckpt_dir, async_guidance=False, dispatch_burst=1,
+        **LR_SCALERS)
+
+
+def assert_launches(counts: dict, want: dict, label: str) -> None:
+    """Every kernel's launches in `counts` as `want` gives them (0 where
+    it names none)."""
+    for k, v in counts.items():
+        assert v == want.get(k, 0), f"{label}: {k} launched {v} times, " \
+            f"expected {want.get(k, 0)}"
+
+
+def phase_edit(ply: str, thres: float, cameras_extent: float, tmp: str,
+               device: str = "cuda", size: int = SIZE) -> dict:
+    """Phase 10: `EditSystem` at full width (see the module docstring);
+    returns the launch counts of each part, and B4's time on the tracing
+    rows."""
+    import numpy as np
+    import torch
+
+    from gaussianeditor_tpu_torch.core.cameras import orbit_cameras
+    from gaussianeditor_tpu_torch.edit import edit_system, tracing
+    from gaussianeditor_tpu_torch.guidance.fake import (
+        FakeGuidance,
+        FakeSegmentor,
+    )
+    from gaussianeditor_tpu_torch.models.ply import load_ply, ply_vertex_count
+    from gaussianeditor_tpu_torch.ops import _kernels
+    from gaussianeditor_tpu_torch.ops.apply_weights import apply_weights
+    from gaussianeditor_tpu_torch.ops.binning_sorted import rank_segment_sum
+    from gaussianeditor_tpu_torch.train.densify import DensifyConfig
+    from gaussianeditor_tpu_torch.train.lpips import LPIPS, random_weights
+    from gaussianeditor_tpu_torch.train.trainer import make_densify_step
+
+    dev = torch.device(device)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    timers = {"apply_weights": [], "save": [], "load": [], "densify": []}
+
+    def timed(key, fn):
+        def run(*a, **k):
+            sync()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            sync()
+            timers[key].append(1e3 * (time.perf_counter() - t0))
+            return out
+        return run
+
+    class CountingGuidance(FakeGuidance):
+        calls = 0
+
+        def __call__(self, rgb, cond_rgb, prompt):
+            CountingGuidance.calls += 1
+            return super().__call__(rgb, cond_rgb, prompt)
+
+    patched = [(tracing, "apply_weights"), (edit_system, "save_train_state"),
+               (edit_system, "load_train_state")]
+    saved = [getattr(m, a) for m, a in patched]
+    tracing.apply_weights = timed("apply_weights", saved[0])
+    edit_system.save_train_state = timed("save", saved[1])
+    edit_system.load_train_state = timed("load", saved[2])
+    try:
+        scene = load_ply(ply, capacity=4 * ply_vertex_count(ply), device=dev)
+        cams = orbit_cameras(EDIT_VIEWS, 4.0, 0.8, 0.8, size, size,
+                             device=dev)
+        lp = LPIPS(random_weights(0))
+        ckpt_dir = os.path.join(tmp, "edit_checkpoints")
+        seg = FakeSegmentor()
+        sys_a = edit_system.EditSystem(
+            scene, cams, edit_config(thres, cameras_extent, ckpt_dir),
+            guidance=CountingGuidance(), segmentor=seg, perceptual=lp)
+        densify_at = {}
+
+        def densify_at_own_threshold(state, **kw):
+            # phase 7's rule on this run's statistics: the 99.9th
+            # percentile of the traced Gaussians' mean gradients (phase
+            # 7's own value, from other targets and all Gaussians, let
+            # none of them through in a first run)
+            st = state.stats
+            seen = (st.denom > 0) & state.scene.mask & state.scene.alive
+            g = st.xyz_gradient_accum[seen] / st.denom[seen]
+            densify_at.update(thres=float(torch.quantile(g, 0.999)),
+                              max=float(g.max()), seen=int(seen.sum()))
+            sys_a.cfg.densify_grad_threshold = densify_at["thres"]
+            cfg = sys_a.cfg
+            return make_densify_step(
+                sys_a.optim, DensifyConfig(
+                    max_grad=cfg.densify_grad_threshold,
+                    max_densify_percent=cfg.max_densify_percent,
+                    min_opacity=cfg.min_opacity,
+                    max_screen_size=cfg.max_screen_size,
+                    percent_dense=sys_a.optim.config.percent_dense),
+                cfg.cameras_extent, cfg.anchor_weight_init,
+                cfg.anchor_weight_multiplier)(state, **kw)
+
+        sys_a.densify_step = timed("densify", densify_at_own_threshold)
+        V, C = EDIT_VIEWS, scene.capacity
+        sync()
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+
+        # --- on_fit_start: the origin renders, then the tracing ---
+        _kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        sys_a.render_all_views()
+        sync()
+        origin_ms = 1e3 * (time.perf_counter() - t0)
+        c_origin = _kernels.launch_counts()
+        # the segmentor's reference: view 0's centre colour. Its radius, a
+        # percentile of the distances to it over view 0's covered pixels,
+        # is bisected until tracing selects 10-50% of the alive Gaussians
+        # (the selection grows with the radius, and steeply: the opaque
+        # middle of a view is close to its centre's colour, the
+        # translucent rim is not)
+        f0 = sys_a.origin_frames[0]
+        seg.ref_color = f0[size // 2, size // 2].copy()
+        dist = np.linalg.norm(f0 - seg.ref_color, axis=-1)[f0.sum(-1) > 0]
+        alive = sys_a.scene.alive
+        lo, hi, q = 0.0, 100.0, 50.0
+        for _ in range(8):
+            seg.radius = float(np.percentile(dist, q))
+            w, c = tracing.accumulate_view_weights(
+                sys_a.scene, cams,
+                [seg(sys_a.origin_frames[i], "") for i in range(V)])
+            sel = ((w[:, 0] / (c.float() + 1e-7) > 0.5) & alive).sum()
+            share = int(sel) / int(alive.sum())
+            print(f"edit: segmentor radius {seg.radius:.4g} (percentile "
+                  f"{q:.2f}) traces {share:.4f} of the alive Gaussians",
+                  flush=True)
+            if 0.1 <= share <= 0.5:
+                break
+            lo, hi = (q, hi) if share < 0.1 else (lo, q)
+            q = (lo + hi) / 2
+        del w, c
+        timers["apply_weights"].clear()
+        _kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        sys_a.on_fit_start()
+        sync()
+        start_ms = 1e3 * (time.perf_counter() - t0)
+        c_trace = _kernels.launch_counts()
+        selected = int((sys_a.scene.mask & alive).sum())
+        frac = selected / int(alive.sum())
+        masks = [seg(sys_a.origin_frames[i], "the object") for i in range(V)]
+        px_in = [float(m.mean()) for m in masks]
+        trace_view_ms = list(timers["apply_weights"])
+        print(f"edit: {int(alive.sum())} alive of {C} slots, {V} views at "
+              f"{size}x{size}; on_fit_start {origin_ms + start_ms:.1f} ms: "
+              f"origin renders {origin_ms:.1f} ms, tracing and the state's "
+              f"copy {start_ms:.1f} ms, tracing per view (ms) "
+              + ", ".join(f"{t:.1f}" for t in trace_view_ms), flush=True)
+        print(f"edit: segmentor radius {seg.radius:.4f} around "
+              f"{np.round(seg.ref_color, 4).tolist()}; share of pixels in the "
+              "mask by view " + ", ".join(f"{v:.3f}" for v in px_in)
+              + f"; the traced mask selects {selected} Gaussians, "
+              f"{frac:.4f} of the alive ones", flush=True)
+        print(f"edit launches: origin renders {c_origin}; tracing {c_trace}",
+              flush=True)
+        assert_launches(c_origin, dict(binning_key=V, forward_tile=V),
+                        "origin renders")
+        assert_launches(c_trace, dict(binning_key=V, rank_segment_sum=V),
+                        "tracing")
+        assert 0.01 <= frac <= 0.99, f"the traced mask selects {frac}"
+
+        # --- tracing: bitwise repeat, and B4 against index_add_ ---
+        w1, c1 = tracing.accumulate_view_weights(sys_a.scene, cams, masks)
+        w2, c2 = tracing.accumulate_view_weights(sys_a.scene, cams, masks)
+        sync()
+        assert torch.equal(w1, w2) and torch.equal(c1, c2), \
+            "tracing is not bitwise repeatable"
+        rows = {}
+        wv, cv, _ = apply_weights(
+            sys_a.scene, cams[0], torch.as_tensor(masks[0], device=dev)[..., None],
+            torch.zeros((C, 1), device=dev),
+            torch.zeros((C,), dtype=torch.int32, device=dev), rows=rows)
+        r, b_incl, tt = rows["rows"], rows["b_incl"], rows["tiles_touched"]
+        n = r.shape[1]
+        g = torch.searchsorted(b_incl, torch.arange(n, dtype=torch.int32,
+                                                    device=dev), right=True)
+        live = g < C
+        ref64 = torch.zeros((C, 2), dtype=torch.float64, device=dev)
+        ref64.index_add_(0, g[live], r.T[live].double())
+        cnt64 = torch.zeros((C,), dtype=torch.int64, device=dev)
+        cnt64.index_add_(0, g[live], r[1][live].long())
+        rms = ref64[:, 0].pow(2).mean().sqrt()
+        rel = float(((wv[:, 0].double() - ref64[:, 0]).abs() / rms).max())
+        assert torch.equal(cv.long(), cnt64), "tracing counts != index_add_"
+        assert rel <= 1e-5, f"tracing weights: {rel} of the column RMS"
+        b4_ms = lib_ms = None
+        if dev.type == "cuda":
+            b4_ms = time_ms(lambda: rank_segment_sum(r, b_incl, tt, C))
+            gl, rl = g[live], r.T[live].double()
+            lib_ms = time_ms(lambda: torch.zeros(
+                (C, 2), dtype=torch.float64, device=dev).index_add_(0, gl, rl))
+        print(f"edit tracing: two passes over the {V} views bitwise equal; "
+              f"view 0's {n} rank rows: B4 counts equal an int64 index_add_, "
+              f"weights within {rel:.3g} of the column RMS of a float64 one; "
+              f"B4 on these rows (GF 2) {b4_ms} ms, float64 index_add_ "
+              f"{lib_ms} ms", flush=True)
+        del w1, w2, c1, c2, wv, cv, rows, r, ref64, cnt64, g, live
+        if dev.type == "cuda":
+            m0 = torch.as_tensor(masks[0], device=dev)[..., None]
+            profile_once(lambda: apply_weights(
+                sys_a.scene, cams[0], m0, torch.zeros((C, 1), device=dev),
+                torch.zeros((C,), dtype=torch.int32, device=dev)),
+                "one tracing view (view 0)", top=12)
+
+        # --- 30 steps ---
+        rec = []
+        guided = [CountingGuidance.calls]
+        last = [time.perf_counter()]
+
+        def callback(step, m):
+            sync()
+            now = time.perf_counter()
+            rec.append(dict(step=step, ms=1e3 * (now - last[0]),
+                            refresh=CountingGuidance.calls > guided[0],
+                            m={k: float(v) for k, v in m.items()}))
+            guided[0] = CountingGuidance.calls
+            last[0] = time.perf_counter()
+
+        calls0 = CountingGuidance.calls
+        _kernels.reset_launch_counts()
+        last[0] = time.perf_counter()
+        state = sys_a.fit(callback=callback)
+        sync()
+        c_steps = _kernels.launch_counts()
+        refresh_renders = CountingGuidance.calls - calls0
+        print(f"edit launches over {EDIT_STEPS} steps ({refresh_renders} "
+              f"target refreshes, each one render): {c_steps}", flush=True)
+        assert_launches(c_steps, dict(
+            binning_key=2 * EDIT_STEPS + refresh_renders,
+            forward_tile=2 * EDIT_STEPS + refresh_renders,
+            backward_tile=2 * EDIT_STEPS, rank_segment_sum=2 * EDIT_STEPS),
+            "steps")
+        assert [x["step"] for x in rec] == list(range(EDIT_STEPS)), \
+            "the callback did not fire once a step, in order"
+        dkeys = ("n_cloned", "n_split", "n_pruned", "n_dropped")
+        for x in rec:
+            has = all(k in x["m"] for k in dkeys)
+            assert has == (x["step"] == EDIT_REFRESH), \
+                f"densify info at step {x['step']}: {has}"
+            assert all(math.isfinite(v) for v in x["m"].values()), x["step"]
+            assert x["m"]["overflow"] == 0.0, f"overflow at {x['step']}"
+        dinfo = {k: int(rec[EDIT_REFRESH]["m"][k]) for k in dkeys}
+        l1 = [x["m"]["loss_l1"] for x in rec]
+        for k, v in state.scene.params().items():
+            assert torch.isfinite(v).all(), f"{k} not finite"
+            assert torch.isfinite(state.opt_state.mu[k]).all(), f"mu {k}"
+            assert torch.isfinite(state.opt_state.nu[k]).all(), f"nu {k}"
+        for f in ("xyz_gradient_accum", "denom", "max_radii2d"):
+            assert torch.isfinite(getattr(state.stats, f)).all(), f
+        ckpt = os.path.join(ckpt_dir, f"state_{EDIT_CHECKPOINT:06d}.npz")
+        ckpt_bytes = os.path.getsize(ckpt)
+        step_ms = {x["step"]: x["ms"] for x in rec}
+        step_ms[EDIT_REFRESH] -= timers["densify"][0]
+        step_ms[EDIT_CHECKPOINT] -= timers["save"][0]
+        refresh = [step_ms[x["step"]] for x in rec if x["refresh"]]
+        plain = [step_ms[x["step"]] for x in rec if not x["refresh"]]
+        peak = (torch.cuda.max_memory_allocated() / 2**30
+                if dev.type == "cuda" else float("nan"))
+        print("edit: loss_l1 by step: " + ", ".join(f"{v:.6f}" for v in l1),
+              flush=True)
+        print("edit: loss_p by step: " + ", ".join(
+            f"{x['m']['loss_p']:.6f}" for x in rec), flush=True)
+        print(f"edit: ms per step (host clock, synchronised; the densify "
+              f"and the checkpoint taken out): refresh steps ({len(refresh)}) "
+              f"median {statistics.median(refresh):.2f}, plain steps "
+              f"({len(plain)}) median {statistics.median(plain):.2f}; first "
+              f"step {step_ms[0]:.2f}; every step: " + ", ".join(
+                  f"{step_ms[s]:.1f}" for s in range(EDIT_STEPS)), flush=True)
+        print(f"edit: densify at step {EDIT_REFRESH} {timers['densify'][0]:.1f}"
+              f" ms (threshold {densify_at['thres']:.4g} over "
+              f"{densify_at['seen']} traced Gaussians seen, largest "
+              f"{densify_at['max']:.4g}; phase 7's {thres:.4g}), {dinfo}; "
+              f"checkpoint {ckpt_bytes} bytes "
+              f"({ckpt_bytes / 2**30:.3f} GiB), written in "
+              f"{timers['save'][0]:.1f} ms; peak device memory {peak:.2f} GiB",
+              flush=True)
+        assert dinfo["n_cloned"] + dinfo["n_split"] > 0, "densify did nothing"
+        assert statistics.mean(l1[-5:]) < statistics.mean(l1[:5]), \
+            "loss_l1 did not fall"
+
+        # --- a second system resumed from the step-20 checkpoint ---
+        sys_b = edit_system.EditSystem(
+            scene, cams, edit_config(thres, cameras_extent),
+            guidance=FakeGuidance(), segmentor=seg, perceptual=lp)
+        sys_b.resume(ckpt)
+        assert sys_b.state.step == EDIT_CHECKPOINT
+        sys_b.fit(n_steps=EDIT_STEPS - EDIT_CHECKPOINT)
+        sync()
+        a, b = sys_a.state, sys_b.state
+        assert b.step == a.step == EDIT_STEPS
+        assert b.opt_state.count == a.opt_state.count
+        for k in a.scene.params():
+            for x, y, what in ((getattr(a.scene, k), getattr(b.scene, k), ""),
+                               (a.opt_state.mu[k], b.opt_state.mu[k], "mu "),
+                               (a.opt_state.nu[k], b.opt_state.nu[k], "nu ")):
+                assert torch.equal(x, y), f"resumed run: {what}{k} differs"
+        for f in ("xyz_gradient_accum", "denom", "max_radii2d"):
+            assert torch.equal(getattr(a.stats, f), getattr(b.stats, f)), f
+        for f in ("mask", "alive", "generation"):
+            assert torch.equal(getattr(a.scene, f), getattr(b.scene, f)), f
+        print(f"edit: resumed from {os.path.basename(ckpt)} (load "
+              f"{timers['load'][0]:.1f} ms) and ran "
+              f"{EDIT_STEPS - EDIT_CHECKPOINT} steps: parameters, moments, "
+              "statistics, mask and step bitwise equal to the uninterrupted "
+              "run", flush=True)
+        if dev.type == "cuda":
+            profile_once(lambda: sys_b.fit(n_steps=1),
+                         "one plain edit step (step 30, resumed system)",
+                         top=15)
+            print(f"edit: the numbers above on {nvidia_smi()}", flush=True)
+        os.remove(ckpt)
+    finally:
+        for (m, a), fn in zip(patched, saved):
+            setattr(m, a, fn)
+    return dict(origin=c_origin, tracing=c_trace, steps=c_steps,
+                b4_tracing_ms=b4_ms, index_add_ms=lib_ms)
 
 
 def main() -> int:
@@ -1132,17 +1512,25 @@ def main() -> int:
         del view
 
         # 7. the train path
-        tr = phase_train(state.scene, state.cameras_extent)
-        train_counts = tr["counts"]
+        extent = state.cameras_extent
+        tr = phase_train(state.scene, extent)
+        train_counts, thres = tr["counts"], tr["thres"]
         del state   # phase 7's trained scene: phase 9 loads the PLY again
 
         # 9. the train path through the dense route
         dense_counts = phase_train_dense(tr, ply)
         del tr
+        torch.cuda.empty_cache()
+
+        # 10. the edit loop, from the PLY loaded again
+        ed = phase_edit(ply, thres, extent, tmp)
+        b4["ms_by_route"]["tracing"] = ed["b4_tracing_ms"]
+        b4["index_add_ms_tracing"] = ed["index_add_ms"]
 
     # launches on each kernel's own path: B1 and B2 serve frames (phase
     # 4), B3 and B4 train (phase 7), B5 and B6 train on the dense route
-    # (phase 9); every path's counts are listed
+    # (phase 9); every path's counts are listed, the edit loop's (phase
+    # 10) by part
     names = {"B1 binning_key": ("binning_key", serve_counts),
              "B2 forward_tile": ("forward_tile", serve_counts),
              "B3 backward_tile": ("backward_tile", train_counts),
@@ -1154,7 +1542,10 @@ def main() -> int:
         k["launches"] = counts[key]
         k["launches_by_path"] = {"serve": serve_counts[key],
                                  "train": train_counts[key],
-                                 "train_dense": dense_counts[key]}
+                                 "train_dense": dense_counts[key],
+                                 "edit_origin": ed["origin"][key],
+                                 "edit_tracing": ed["tracing"][key],
+                                 "edit_steps": ed["steps"][key]}
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

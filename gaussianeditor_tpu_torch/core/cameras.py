@@ -1,11 +1,12 @@
 """Camera model and projection math.
 
 Counterpart of `gaussianeditor_tpu/core/cameras.py` (`Camera`,
-`fov2focal`, `focal2fov`, `get_world2view`, `get_projection_matrix`,
-`lookat_camera`, `orbit_cameras`). Matrices are in math (column-vector)
-convention, `p_cam = world_view @ [p; 1]`; the projection maps z into
-[0, 1]. They are built in numpy float64 and cast to float32 exactly as
-the JAX package does, then placed on the requested device.
+`Camera.rescale`, `fov2focal`, `focal2fov`, `get_world2view`,
+`get_projection_matrix`, `lookat_camera`, `orbit_cameras`). Matrices
+are in math (column-vector) convention, `p_cam = world_view @ [p; 1]`;
+the projection maps z into [0, 1]. They are built in numpy float64
+and cast to float32 exactly as the JAX package does, then placed on
+the requested device.
 """
 
 from __future__ import annotations
@@ -97,6 +98,11 @@ class Camera:
     @property
     def focal_y(self) -> torch.Tensor:
         return self.height / (2.0 * self.tan_fovy)
+
+    def rescale(self, height: int, width: int) -> "Camera":
+        """The same pose at another image size (the field of view is
+        kept, so the focal lengths follow the size)."""
+        return dataclasses.replace(self, height=int(height), width=int(width))
 
     def to(self, device) -> "Camera":
         device = resolve_device(device)

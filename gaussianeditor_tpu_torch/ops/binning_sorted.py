@@ -21,7 +21,10 @@ Differences from the JAX route, none of which changes an output:
     rasterizer_impl.cu:236-244).
 The depth key keeps the JAX cut: min(32 - tile_bits, 24) bits of the f32
 depth's bit pattern (visible depths are > 0.2, so the pattern is that of
-a non-negative int).
+a non-negative int). `depth_bits` takes another cut: semantic tracing
+passes 32 - tile_bits, the cut of the JAX `ops/binning.py::bin_and_sort`
+that the JAX tracing sorts with (the same as the default at 128 tiles or
+more).
 
 `rank_segment_sum` is the backward's per-Gaussian reduction. Kernel B3
 writes each sorted row's gradient straight to its pre-sort rank (`rank`
@@ -36,7 +39,7 @@ mean-centred prefix differences.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -140,15 +143,22 @@ def binning_key(proc: ProcessedGaussians, b_incl: torch.Tensor, n: int,
 
 
 def sorted_bin(proc: ProcessedGaussians, grid_x: int, grid_y: int,
-               max_instances: int) -> SortedBinning:
+               max_instances: int, depth_bits: Optional[int] = None
+               ) -> SortedBinning:
     """Bin every visible Gaussian into the tiles of its rect and sort the
     instances by [tile | depth], keeping at most R = max_instances rounded
-    up to CHUNK; `overflow` reports a truncated list."""
+    up to CHUNK; `overflow` reports a truncated list. depth_bits: the
+    depth key's bits, `key_depth_bits(num_tiles)` by default; at most
+    32 - tile_bits, so that every live key stays below the dead one."""
     num_tiles = grid_x * grid_y
     C = proc.tiles_touched.shape[0]
     dev = proc.tiles_touched.device
     R = _round_up(max_instances, CHUNK)
-    kdb = key_depth_bits(num_tiles)
+    tile_bits = max((num_tiles + 1).bit_length(), 1)
+    kdb = key_depth_bits(num_tiles) if depth_bits is None else int(depth_bits)
+    if not 1 <= kdb <= 32 - tile_bits:
+        raise ValueError(f"depth_bits {kdb} outside [1, {32 - tile_bits}] "
+                         f"for {num_tiles} tiles")
 
     b_incl = torch.cumsum(proc.tiles_touched, 0, dtype=torch.int32)
     total = int(b_incl[-1]) if C > 0 else 0   # the one host read

@@ -2,8 +2,9 @@
 
 Counterpart of `gaussianeditor_tpu/train/perceptual.py::
 multiscale_gradient_loss`: L1 on the image gradients of the difference
-image over a 2x average-pooled pyramid. The LPIPS network (`TorchLPIPS`,
-`train/lpips_jax.py`) is not ported yet.
+image over a 2x average-pooled pyramid. The LPIPS network is
+`train/lpips.py`; its `make_perceptual` falls back to this term when no
+weights exist.
 """
 
 from __future__ import annotations

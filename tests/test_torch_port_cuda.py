@@ -510,3 +510,119 @@ def test_render_on_cuda_without_compiler_raises(cuda, monkeypatch, tmp_path):
                         device=cuda)
     with torch.no_grad(), pytest.raises(RuntimeError, match="nvcc"):
         render(scene, cam)
+
+
+# ---- the edit loop's tracing and train step ----
+
+def test_binning_key_kernel_at_a_28_bit_cut(cuda):
+    """9 tiles leave 28 bits of depth: the cut semantic tracing takes."""
+    proc = _proc(_scene(3000, cuda, seed=2), 48, cuda)
+    gx = 3
+    assert max((gx * gx + 1).bit_length(), 1) == 4
+    b_incl = torch.cumsum(proc.tiles_touched, 0, dtype=torch.int32)
+    total = int(b_incl[-1])
+    key, payload = binning_key(proc, b_incl, total + 64, total, gx, 28)
+    want_key, want_payload = binning_key_plain(
+        b_incl, proc.tiles_touched, proc.rect_min, proc.rect_max,
+        proc.mean2d, proc.conic, proc.opacity, proc.depth, proc.color,
+        total + 64, total, gx, 28)
+    torch.cuda.synchronize()
+    assert torch.equal(key, want_key)
+    assert torch.equal(payload, want_payload)
+    sb = sorted_bin(proc, gx, gx, 1 << 20, depth_bits=28)
+    assert int(sb.tile_bounds[-1]) == total
+
+
+def test_rank_segment_sum_kernel_at_gf_2(cuda):
+    """B4 on the tracing's rows: GF = ch + 1 = 2, C = 1000 (not a multiple
+    of the kernel's 256 slots a block, nor of 4)."""
+    rng = np.random.RandomState(5)
+    counts = rng.zipf(1.8, 1000).clip(max=700) * (rng.rand(1000) < 0.8)
+    b_incl = torch.as_tensor(np.cumsum(counts).astype(np.int32), device=cuda)
+    tt = torch.as_tensor(counts.astype(np.int32), device=cuda)
+    n = int(counts.sum())
+    rows = torch.rand((2, n), device=cuda)
+    rows[1] = torch.randint(0, 513, (n,), device=cuda).float()  # counts
+    got = rank_segment_sum(rows, b_incl, tt, 1000)
+    want = rank_segment_sum_plain(rows.cpu(), b_incl.cpu(), tt.cpu(), 1000)
+    torch.cuda.synchronize()
+    assert got.shape == (1000, 2)
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(got, rank_segment_sum(rows, b_incl, tt, 1000))
+
+
+def _counts_close(got, want, ch):
+    d = (got.cpu().long() - want.cpu().long()).abs().sum() / ch
+    return float(d) <= max(1.0, 1e-4 * float(want.long().sum()) / ch)
+
+
+def test_apply_weights_on_cuda_repeats_and_matches_cpu(cuda):
+    from gaussianeditor_tpu_torch.ops.apply_weights import apply_weights
+
+    scene = _scene(6000, cuda, seed=4, capacity=8000)
+    scene_cpu = _scene(6000, "cpu", seed=4, capacity=8000)
+    cams = [lookat_camera((0, 0, -4), (0, 0, 0), (0, 1, 0), 0.8, 0.8, 96, 160,
+                          device=d) for d in (cuda, "cpu")]
+    img = torch.rand((96, 160, 2), generator=torch.Generator().manual_seed(4))
+    C = scene.capacity
+    w0, c0 = torch.zeros((C, 2)), torch.zeros((C,), dtype=torch.int32)
+    _kernels.reset_launch_counts()
+    w1, c1, o1 = apply_weights(scene, cams[0], img.to(cuda), w0.to(cuda),
+                               c0.to(cuda))
+    w2, c2, _ = apply_weights(scene, cams[0], img.to(cuda), w0.to(cuda),
+                              c0.to(cuda))
+    torch.cuda.synchronize()
+    assert _kernels.launch_counts() == dict(NO_LAUNCHES, binning_key=2,
+                                            rank_segment_sum=2)
+    assert torch.equal(w1, w2) and torch.equal(c1, c2) and not bool(o1)
+    wc, cc, _ = apply_weights(scene_cpu, cams[1], img, w0, c0)
+    assert int(cc.sum()) > 0
+    assert _counts_close(c1, cc, 2)
+    assert_images_close(w1.cpu() / (c1.cpu()[:, None] + 1e-7),
+                        wc / (cc[:, None] + 1e-7), name="normalised weights")
+
+
+def test_edit_steps_with_lpips_repeat_bitwise(cuda):
+    from gaussianeditor_tpu_torch.core.cameras import orbit_cameras
+    from gaussianeditor_tpu_torch.edit.edit_system import (
+        EditConfig,
+        EditSystem,
+    )
+    from gaussianeditor_tpu_torch.guidance.fake import (
+        FakeGuidance,
+        FakeSegmentor,
+    )
+    from gaussianeditor_tpu_torch.train.lpips import LPIPS, random_weights
+
+    scene = _scene(5000, cuda, seed=6, capacity=6000)
+    cams = orbit_cameras(4, 4.0, 0.8, 0.8, 64, 64, device=cuda)
+    cfg = EditConfig(prompt="p", seg_prompt="x", batch_size=2, max_steps=3,
+                     per_editing_step=2, densification_interval=2,
+                     densify_until_step=3, densify_grad_threshold=1e-6,
+                     cameras_extent=2.0)
+    lp = LPIPS(random_weights(0))
+
+    def run():
+        sys_ = EditSystem(scene, cams, cfg, guidance=FakeGuidance(),
+                          segmentor=FakeSegmentor((0.5, 0.5, 0.5), 0.6),
+                          perceptual=lp)
+        ms = []
+        sys_.fit(callback=lambda s, m: ms.append(float(m["loss_p"])))
+        return sys_, ms
+
+    _kernels.reset_launch_counts()
+    a, ma = run()
+    counts = _kernels.launch_counts()
+    b, mb = run()
+    torch.cuda.synchronize()
+    assert counts["forward_chunk"] == counts["backward_chunk"] == 0
+    for k in ("binning_key", "forward_tile", "backward_tile",
+              "rank_segment_sum"):
+        assert counts[k] > 0, k
+    assert ma == mb and all(v > 0 for v in ma)
+    for k, v in a.state.scene.params().items():
+        assert torch.equal(v, getattr(b.state.scene, k)), k
+        assert torch.equal(a.state.opt_state.nu[k], b.state.opt_state.nu[k])
+    assert torch.equal(a.state.scene.mask, b.state.scene.mask)
+    assert torch.equal(a.state.stats.xyz_gradient_accum,
+                       b.state.stats.xyz_gradient_accum)
