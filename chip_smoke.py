@@ -5,7 +5,9 @@
 
 Phases, in order; any failure exits non-zero:
   1. device: a CUDA device is present; its name and power limit.
-  2. build: nvcc compiles every kernel of the render path from csrc/.
+  2. build: nvcc compiles every kernel of the render path from csrc/,
+     and g++ the host KNN of native/ (the scipy fallback must not be
+     taken).
   3. kernel vs plain, at full width: a 1,000,000-Gaussian SH-degree-3
      scene (bench.py's recipe, seed 0) written to a PLY and loaded the way
      the viewer loads it, at 4x capacity; one 512x512 view, rendered both
@@ -95,8 +97,48 @@ Phases, in order; any failure exits non-zero:
      tracing per view), step medians (refresh and plain steps apart), the
      densify step, the checkpoint's size, write and load times, the peak
      device memory, and a profile of one tracing view and of one step.
-Then it prints the kernels' JSON line, the card's name and power limit,
-and, last, {"ok": true, "device": {...}}.
+ 11. click tracing and the 'tiled' route: the PLY loaded again at 4x
+     capacity. `render(impl="tiled")` of phase 3's view must launch B1
+     and B2 once each and nothing else, equal `sorted_bin` at 32 -
+     tile_bits depth bits then B2 bit for bit on all four outputs, and
+     meet the image bounds against the default route (printed: whether
+     it is bitwise equal, and a 128x128 view where the cuts differ).
+     `trace_from_click` on the 8 orbit views at view 0's centre pixel
+     with `FakePointSegmentor` (its radius bisected, as phase 10's, until
+     10-50% of the alive Gaussians are traced): B1 once per render and per
+     tracing view, B2 once per render, B4 once per tracing view; twice
+     bitwise equal. `point_cloud_render` of the alive centres: finite,
+     with white pixels.
+ 12. Delete: the PLY loaded again, `DelSystem` with configs/del.yaml's
+     `system` values (hard-coded), the 8 orbit views, phase 10's
+     segmentor, `FakeInpainter` and LPIPS with random weights.
+     `on_fit_start` split into origin renders, tracing (per view), the
+     shell search, the mask renders with dilate and fill, the re-renders
+     and inpainting (if the shell is empty at inpaint_scale 0.25 it is
+     doubled until it is not, and the value used is printed); then 10
+     steps. Launches per part: set-up B1 4 x 8, B2 3 x 8, B4 8; steps
+     B1-B4 2 x 10; B5, B6 none. The alive count must fall by the traced
+     count exactly, the shell be non-empty, nothing but the rotations
+     move outside the shell (the mask gates every group but the
+     rotation, as the reference's hooks do), the losses stay finite and
+     the caller's scene stay bitwise as it was.
+ 13. Add and the object path: the PLY loaded again, `AddSystem.run()`
+     with anchor view 0, bbox (160, 160, 352, 352), `FakeInpainter`,
+     `FakeObjectGenerator(n_points=2000)` and no depth estimator: B1 and
+     B2 once; the merged scene must hold 1,002,000 slots with the mask on
+     exactly the last 2,000, and the caller's scene be unchanged. B4 is
+     held against its plain version at that capacity (1e-5 of each
+     column's RMS) and timed. Then 10 refinement steps with
+     `FakeGuidance` and LPIPS: the base's parameters but its rotations
+     bitwise unchanged, the object's moved; one step profiled. Then
+     `fit_colorless_mesh` on a 2,208-face sphere made in numpy, 200,000
+     surface samples, 16 views at 256x256, 20 steps (B1-B4 2 x 20): the
+     L1 over the 16 views against the rasterizer's targets must be lower
+     after the fit than before it.
+Each phase prints its times beside the card's name and power limit;
+the script prints each phase's wall time and its total. Then it prints
+the kernels' JSON line (with each kernel's launches on every path), the
+card's name and power limit, and, last, {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -1441,11 +1483,696 @@ def phase_edit(ply: str, thres: float, cameras_extent: float, tmp: str,
         for (m, a), fn in zip(patched, saved):
             setattr(m, a, fn)
     return dict(origin=c_origin, tracing=c_trace, steps=c_steps,
-                b4_tracing_ms=b4_ms, index_add_ms=lib_ms)
+                b4_tracing_ms=b4_ms, index_add_ms=lib_ms,
+                seg=(seg.ref_color.copy(), seg.radius))
+
+
+# phases 11-13: click tracing, Delete and Add
+DEL_STEPS = 10               # Del's steps (phase 12)
+ADD_BBOX = (160, 160, 352, 352)  # inside 512x512 (configs/add.yaml's is
+                                 # for a larger image)
+ADD_POINTS = 2000            # FakeObjectGenerator's default
+ADD_STEPS = 10               # refinement steps (phase 13)
+MESH_SAMPLES = 200_000       # the reference's count (mesh_to_gs.py:82)
+MESH_VIEWS, MESH_HW, MESH_STEPS = 16, 256, 20
+SPHERE = (24, 48)            # latitude bands, longitude segments
+
+
+def snapshot(scene) -> dict:
+    """Copies of every parameter and buffer of a scene."""
+    return {k: v.detach().clone() for k, v in
+            list(scene.named_parameters()) + list(scene.named_buffers())}
+
+
+def assert_unchanged(scene, before: dict, label: str) -> None:
+    import torch
+
+    for k, v in snapshot(scene).items():
+        assert torch.equal(v, before[k]), f"{label}: {k} changed"
+
+
+class Timers:
+    """Host-clock timings (synchronised) of wrapped callables, by name."""
+
+    def __init__(self, dev):
+        self.dev = dev
+        self.ms = {}
+
+    def sync(self):
+        import torch
+
+        if self.dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    def wrap(self, key, fn):
+        def run(*a, **k):
+            self.sync()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            self.sync()
+            self.ms.setdefault(key, []).append(
+                1e3 * (time.perf_counter() - t0))
+            return out
+        return run
+
+    def total(self, key) -> float:
+        return sum(self.ms.get(key, []))
+
+
+def phase_click(ply: str, device: str = "cuda", size: int = SIZE) -> dict:
+    """Phase 11: the 'tiled' route and click tracing (see the module
+    docstring); returns the launch counts of each part and its times."""
+    import torch
+
+    from gaussianeditor_tpu_torch.core.cameras import (
+        lookat_camera,
+        orbit_cameras,
+    )
+    from gaussianeditor_tpu_torch.edit import tracing
+    from gaussianeditor_tpu_torch.guidance.fake import FakePointSegmentor
+    from gaussianeditor_tpu_torch.models.ply import load_ply, ply_vertex_count
+    from gaussianeditor_tpu_torch.ops import _kernels
+    from gaussianeditor_tpu_torch.ops.binning_sorted import (
+        key_depth_bits,
+        sorted_bin,
+        tiled_depth_bits,
+    )
+    from gaussianeditor_tpu_torch.ops.composite import tiles_to_image
+    from gaussianeditor_tpu_torch.ops.render import (
+        default_max_instances,
+        point_cloud_render,
+        preprocess_scene,
+        render,
+    )
+    from gaussianeditor_tpu_torch.ops.tile_composite import forward_tiles
+    from gaussianeditor_tpu_torch.testing import (
+        assert_images_close,
+        fraction_equal,
+    )
+
+    dev = torch.device(device)
+    tm = Timers(dev)
+    scene = load_ply(ply, capacity=4 * ply_vertex_count(ply), device=dev)
+    C = scene.capacity
+    alive = scene.alive
+    n_alive = int(alive.sum())
+
+    # --- render(impl="tiled") of phase 3's view ---
+    cam = lookat_camera((0.0, 0.0, -4.0), (0.0, 0.0, 0.0), (0.0, 1.0, 0.0),
+                        0.8, 0.8, size, size, device=dev)
+    gx = gy = size // 16
+    bits = tiled_depth_bits(gx * gy)
+    tm.sync()
+    _kernels.reset_launch_counts()
+    with torch.no_grad():
+        out = tm.wrap("tiled", render)(scene, cam, impl="tiled")
+    c_tiled = _kernels.launch_counts()
+    assert_launches(c_tiled, dict(binning_key=1, forward_tile=1),
+                    "tiled render")
+    with torch.no_grad():
+        proc = preprocess_scene(scene, cam)
+        sb = sorted_bin(proc, gx, gy, default_max_instances(C),
+                        depth_bits=bits)
+        tiles = forward_tiles(sb, gx, 3)
+        default = render(scene, cam)
+    for f, t in zip(("color", "depth", "final_T", "n_contrib"), tiles):
+        assert torch.equal(getattr(out, f),
+                           tiles_to_image(t, gx, gy, size, size)), \
+            f"tiled render: {f} differs from sorted_bin({bits} bits) then B2"
+    for f in ("color", "depth", "final_T"):
+        assert_images_close(getattr(out, f), getattr(default, f),
+                            name=f"tiled against the default route: {f}")
+    same = all(torch.equal(getattr(out, f), getattr(default, f))
+               for f in ("color", "depth", "final_T", "n_contrib"))
+    assert not bool(out.overflow)
+    # a 128x128 view of 64 tiles, where the cuts differ (25 and 24 bits)
+    small = cam.rescale(128, 128)
+    with torch.no_grad():
+        s_t, s_d = render(scene, small, impl="tiled"), render(scene, small)
+    s_diff = float((s_t.color - s_d.color).abs().max())
+    print(f"click: tiled render of phase 3's view {tm.total('tiled'):.2f} ms "
+          f"(host clock, one call), {int(out.num_rendered)} instances; "
+          f"equal bit for bit to sorted_bin at {bits} depth bits then B2; "
+          f"the default route cuts at {key_depth_bits(gx * gy)} bits and is "
+          f"{'bitwise equal' if same else 'within the image bounds'}; at "
+          f"128x128 (64 tiles: {tiled_depth_bits(64)} against "
+          f"{key_depth_bits(64)} bits) max color diff "
+          f"{s_diff:.3g}, n_contrib equal on "
+          f"{fraction_equal(s_t.n_contrib, s_d.n_contrib):.5f} of pixels; "
+          f"launches {c_tiled}", flush=True)
+    del proc, sb, tiles, default, s_t, s_d
+
+    # --- click tracing on the 8 orbit views ---
+    cams = orbit_cameras(EDIT_VIEWS, 4.0, 0.8, 0.8, size, size, device=dev)
+    click = (size / 2 - 0.5, size / 2 - 0.5)
+    cache = {}
+
+    def cached_render(s, c):
+        # the bisection's renders: the scene does not change
+        if id(c) not in cache:
+            with torch.no_grad():
+                cache[id(c)] = render(s, c)
+        return cache[id(c)]
+
+    f0 = cached_render(scene, cams[0]).color.cpu().numpy()
+    ref = f0[int(click[1]), int(click[0])]
+    dist = np.linalg.norm(f0 - ref, axis=-1)[f0.sum(-1) > 0]
+    seg = FakePointSegmentor()
+    lo, hi, q = 0.0, 100.0, 50.0
+    for _ in range(8):
+        seg.radius = float(np.percentile(dist, q))
+        tracing.trace_from_click(scene, cams, 0, click, seg,
+                                 render_fn=cached_render)
+        share = int((scene.mask & alive).sum()) / n_alive
+        print(f"click: point segmentor radius {seg.radius:.4g} (percentile "
+              f"{q:.2f}) traces {share:.4f} of the alive Gaussians",
+              flush=True)
+        if 0.1 <= share <= 0.5:
+            break
+        lo, hi = (q, hi) if share < 0.1 else (lo, q)
+        q = (lo + hi) / 2
+    cache.clear()
+
+    seen = []
+
+    def counting_seg(img, pts):
+        seen.append(np.asarray(pts)[0].tolist())
+        return seg(img, pts)
+
+    saved, saved_aw = tracing.render, tracing.apply_weights
+    tracing.render = tm.wrap("click_render", saved)
+    tracing.apply_weights = tm.wrap("click_trace", saved_aw)
+    try:
+        _kernels.reset_launch_counts()
+        tm.sync()
+        t0 = time.perf_counter()
+        _, norm1 = tracing.trace_from_click(scene, cams, 0, click,
+                                            counting_seg)
+        tm.sync()
+        click_ms = 1e3 * (time.perf_counter() - t0)
+        c_click = _kernels.launch_counts()
+    finally:
+        tracing.render = saved
+        tracing.apply_weights = saved_aw
+    mask1 = scene.mask.clone()
+    n_views_seen = len(seen)
+    renders = len(tm.ms["click_render"])
+    assert renders == n_views_seen >= 1, (renders, n_views_seen)
+    assert_launches(c_click, dict(binning_key=renders + EDIT_VIEWS,
+                                  forward_tile=renders,
+                                  rank_segment_sum=EDIT_VIEWS), "click")
+    traced = int((mask1 & alive).sum())
+    share = traced / n_alive
+    assert 0.01 <= share <= 0.99, f"the click traces {share}"
+    _, norm2 = tracing.trace_from_click(scene, cams, 0, click, seg)
+    tm.sync()
+    assert torch.equal(norm1, norm2) and torch.equal(scene.mask, mask1), \
+        "click tracing is not bitwise repeatable"
+    assert torch.isfinite(norm1).all()
+    print(f"click: trace_from_click at {click} on {EDIT_VIEWS} views "
+          f"{click_ms:.1f} ms: {renders} renders "
+          f"({tm.total('click_render'):.1f} ms), tracing per view (ms) "
+          + ", ".join(f"{t:.1f}" for t in tm.ms["click_trace"])
+          + f"; the point projects into {n_views_seen} views at "
+          + "; ".join(f"({x:.1f}, {y:.1f})" for x, y in seen)
+          + f"; traced {traced} of {n_alive} alive Gaussians ({share:.4f}); "
+          f"bitwise equal twice; launches {c_click}", flush=True)
+    del norm1, norm2, mask1
+
+    # --- point_cloud_render of the alive centres ---
+    xyz = scene.xyz.detach()[alive]
+    _kernels.reset_launch_counts()
+    pcr = tm.wrap("pcr", point_cloud_render)(xyz, cam)
+    c_pcr = _kernels.launch_counts()
+    assert_launches(c_pcr, dict(binning_key=1, forward_tile=1),
+                    "point_cloud_render")
+    assert torch.isfinite(pcr.color).all()
+    white = int((pcr.color > 0.9).all(dim=-1).sum())
+    assert white > 0, "point_cloud_render: no white pixel"
+    print(f"click: point_cloud_render of {xyz.shape[0]} centres "
+          f"{tm.total('pcr'):.2f} ms (host clock, one call, first at this "
+          f"size), {int(pcr.num_rendered)} instances, {white} white pixels "
+          f"of {size * size}; launches {c_pcr}", flush=True)
+    if dev.type == "cuda":
+        print(f"click: the numbers above on {nvidia_smi()}", flush=True)
+    return dict(click=c_click, tiled=c_tiled, pcr=c_pcr, click_ms=click_ms)
+
+
+def phase_del(ply: str, cameras_extent: float, seg_ref, seg_radius: float,
+              device: str = "cuda", size: int = SIZE) -> dict:
+    """Phase 12: `DelSystem` at full width (see the module docstring);
+    returns the launch counts of its set-up and of its steps."""
+    import torch
+
+    from gaussianeditor_tpu_torch.core.cameras import orbit_cameras
+    from gaussianeditor_tpu_torch.edit import del_system, tracing
+    from gaussianeditor_tpu_torch.guidance.fake import (
+        FakeInpainter,
+        FakeSegmentor,
+    )
+    from gaussianeditor_tpu_torch.models.ply import load_ply, ply_vertex_count
+    from gaussianeditor_tpu_torch.ops import _kernels
+    from gaussianeditor_tpu_torch.train.lpips import LPIPS, random_weights
+    from gaussianeditor_tpu_torch.train.trainer import LossWeights
+
+    dev = torch.device(device)
+    tm = Timers(dev)
+    scene = load_ply(ply, capacity=4 * ply_vertex_count(ply), device=dev)
+    before = snapshot(scene)
+    cams = orbit_cameras(EDIT_VIEWS, 4.0, 0.8, 0.8, size, size, device=dev)
+    # configs/del.yaml's `system` block, written out
+    cfg = del_system.DelConfig(
+        seg_prompt="the bear", inpaint_prompt="", mask_thres=0.5,
+        fix_holes=True, mask_dilate=5, inpaint_scale=0.25, batch_size=2,
+        max_steps=1000, densify_until_step=800, densification_interval=100,
+        loss=LossWeights(lambda_l1=10.0, lambda_p=10.0,
+                         lambda_anchor_color=5.0, lambda_anchor_geo=50.0,
+                         lambda_anchor_scale=50.0,
+                         lambda_anchor_opacity=50.0),
+        cameras_extent=cameras_extent, seed=SEED)
+    sys_ = del_system.DelSystem(
+        scene, cams, cfg, inpainter=tm.wrap("inpaint", FakeInpainter()),
+        segmentor=FakeSegmentor(seg_ref, seg_radius),
+        perceptual=LPIPS(random_weights(0)))
+    alive0 = int(scene.alive.sum())
+    rec = {}
+    saved_near = del_system.near_gaussians_by_mask
+    saved_aw = tracing.apply_weights
+
+    def near_doubling(xyz, mask, alive, dist):
+        # the shell at inpaint_scale, doubled until it is not empty
+        factor = 1.0
+        shell = tm.wrap("shell", saved_near)(xyz, mask, alive, dist)
+        while not shell.any() and factor < 1024:
+            factor *= 2
+            shell = tm.wrap("shell", saved_near)(xyz, mask, alive,
+                                                 dist * factor)
+        rec.update(scale=cfg.inpaint_scale * factor, dist=dist * factor,
+                   shell=int(shell.sum()), obj=int((mask & alive).sum()))
+        return shell
+
+    update_mask = sys_.update_mask
+
+    def traced_update_mask():
+        update_mask()
+        rec["traced"] = int((sys_.scene.mask & sys_.scene.alive).sum())
+
+    sys_.update_mask = tm.wrap("tracing", traced_update_mask)
+    sys_.render_all_views = tm.wrap("renders", sys_.render_all_views)
+    view_masks = {}
+
+    def keep_masks(fn):
+        def run():
+            view_masks.update(fn())
+            return view_masks
+        return run
+
+    sys_.render_view_masks = tm.wrap("hole_masks",
+                                     keep_masks(sys_.render_view_masks))
+    del_system.near_gaussians_by_mask = near_doubling
+    tracing.apply_weights = tm.wrap("trace_view", saved_aw)
+    try:
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        _kernels.reset_launch_counts()
+        tm.sync()
+        t0 = time.perf_counter()
+        sys_.on_fit_start()
+        tm.sync()
+        setup_ms = 1e3 * (time.perf_counter() - t0)
+        c_setup = _kernels.launch_counts()
+    finally:
+        del_system.near_gaussians_by_mask = saved_near
+        tracing.apply_weights = saved_aw
+    pruned = sys_.scene
+    V = EDIT_VIEWS
+    assert_launches(c_setup, dict(binning_key=4 * V, forward_tile=3 * V,
+                                  rank_segment_sum=V), "Del set-up")
+    alive1 = int(pruned.alive.sum())
+    shell = int((pruned.mask & pruned.alive).sum())
+    assert alive1 == alive0 - rec["traced"], (alive0, alive1, rec)
+    assert 0.01 <= rec["traced"] / alive0 <= 0.99, rec
+    assert shell == rec["shell"] > 0, rec
+    r = tm.ms["renders"]   # origin, update_mask's (cached), re-renders
+    holes = [float(view_masks[i].mean()) for i in range(V)]
+    print(f"del: {alive0} alive of {scene.capacity} slots, {V} views at "
+          f"{size}x{size}; on_fit_start {setup_ms:.1f} ms: origin renders "
+          f"{r[0]:.1f}, tracing {tm.total('tracing'):.1f} (per view "
+          + ", ".join(f"{t:.1f}" for t in tm.ms["trace_view"])
+          + f"), shell search {tm.total('shell'):.1f} "
+          f"({len(tm.ms['shell'])} calls), mask renders with dilate and fill "
+          f"{tm.total('hole_masks'):.1f}, re-renders {r[-1]:.1f}, inpainting "
+          f"{tm.total('inpaint'):.1f} ms", flush=True)
+    print(f"del: traced {rec['traced']} Gaussians "
+          f"({rec['traced'] / alive0:.4f}"
+          f" of the alive ones), pruned: {alive1} alive; shell {shell} "
+          f"Gaussians within {rec['dist']:.4g} (inpaint_scale "
+          f"{rec['scale']:g}, cameras_extent {cameras_extent:.4g}); hole "
+          "share of pixels by view " + ", ".join(f"{h:.3f}" for h in holes)
+          + f"; launches {c_setup}", flush=True)
+
+    # --- the steps ---
+    rec_steps = []
+    last = [0.0]
+
+    def callback(step, m):
+        tm.sync()
+        now = time.perf_counter()
+        rec_steps.append(dict(ms=1e3 * (now - last[0]),
+                              m={k: float(v) for k, v in m.items()}))
+        last[0] = time.perf_counter()
+
+    _kernels.reset_launch_counts()
+    tm.sync()
+    last[0] = time.perf_counter()
+    state = sys_.fit(n_steps=DEL_STEPS, callback=callback)
+    tm.sync()
+    c_steps = _kernels.launch_counts()
+    n = 2 * DEL_STEPS
+    assert_launches(c_steps, dict(binning_key=n, forward_tile=n,
+                                  backward_tile=n, rank_segment_sum=n),
+                    "Del steps")
+    assert len(rec_steps) == DEL_STEPS
+    for x in rec_steps:
+        assert all(math.isfinite(v) for v in x["m"].values()), x
+    # the mask gates every group but the rotation (the reference's
+    # apply_grad_mask hooks), so outside the shell nothing else moves
+    out = state.scene
+    moved = torch.zeros_like(pruned.mask)
+    for k, v in pruned.params().items():
+        d = (getattr(out, k) != v).reshape(v.shape[0], -1).any(dim=1)
+        if k != "quats":
+            assert not (d & ~pruned.mask).any(), f"{k} moved outside the shell"
+            moved |= d
+    assert moved.any(), "nothing in the shell moved"
+    assert torch.equal(out.alive, pruned.alive)
+    assert_unchanged(scene, before, "Del: the caller's scene")
+    ms = [x["ms"] for x in rec_steps]
+    peak = (torch.cuda.max_memory_allocated() / 2**30
+            if dev.type == "cuda" else float("nan"))
+    print("del: loss_l1 by step: " + ", ".join(
+        f"{x['m']['loss_l1']:.6f}" for x in rec_steps), flush=True)
+    print(f"del: {DEL_STEPS} steps, ms per step (host clock, synchronised): "
+          f"median {statistics.median(ms):.2f}, first {ms[0]:.2f}; every "
+          "step: " + ", ".join(f"{t:.1f}" for t in ms)
+          + f"; {int(moved.sum())} shell Gaussians moved; peak device memory "
+          f"{peak:.2f} GiB; launches {c_steps}", flush=True)
+    if dev.type == "cuda":
+        print(f"del: the numbers above on {nvidia_smi()}", flush=True)
+    return dict(setup=c_setup, steps=c_steps, setup_ms=setup_ms,
+                step_ms=statistics.median(ms))
+
+
+def uv_sphere(n_lat: int, n_lon: int, radius: float = 0.5):
+    """A closed UV sphere: (verts [V, 3] float32, faces [F, 3] int32),
+    2 * n_lon * (n_lat - 1) triangles."""
+    th = np.linspace(0, np.pi, n_lat + 1)[1:-1]
+    ph = np.linspace(0, 2 * np.pi, n_lon, endpoint=False)
+    ring = np.stack([np.sin(th)[:, None] * np.cos(ph)[None],
+                     np.cos(th)[:, None] * np.ones_like(ph)[None],
+                     np.sin(th)[:, None] * np.sin(ph)[None]], axis=-1)
+    verts = np.concatenate([[[0, 1, 0]], ring.reshape(-1, 3), [[0, -1, 0]]])
+    idx = 1 + np.arange((n_lat - 1) * n_lon).reshape(n_lat - 1, n_lon)
+    nxt = np.roll(idx, -1, axis=1)
+    faces = [np.stack([np.zeros(n_lon, int), nxt[0], idx[0]], axis=1)]
+    for i in range(n_lat - 2):
+        faces.append(np.stack([idx[i], nxt[i], nxt[i + 1]], axis=1))
+        faces.append(np.stack([idx[i], nxt[i + 1], idx[i + 1]], axis=1))
+    faces.append(np.stack([np.full(n_lon, len(verts) - 1), idx[-1], nxt[-1]],
+                          axis=1))
+    return ((radius * verts).astype(np.float32),
+            np.concatenate(faces).astype(np.int32))
+
+
+def phase_add(ply: str, cameras_extent: float, device: str = "cuda",
+              size: int = SIZE) -> dict:
+    """Phase 13: `AddSystem.run()`, its refinement and the mesh object's
+    fit at full width (see the module docstring); returns the launch
+    counts of each part and B4's time at the merged capacity."""
+    import torch
+
+    from gaussianeditor_tpu_torch.core.cameras import orbit_cameras
+    from gaussianeditor_tpu_torch.edit import add_system, mesh_to_gs
+    from gaussianeditor_tpu_torch.guidance.fake import (
+        FakeGuidance,
+        FakeInpainter,
+        FakeObjectGenerator,
+    )
+    from gaussianeditor_tpu_torch.models.ply import load_ply, ply_vertex_count
+    from gaussianeditor_tpu_torch.ops import _kernels
+    from gaussianeditor_tpu_torch.ops.binning_sorted import (
+        rank_segment_sum,
+        rank_segment_sum_plain,
+        sorted_bin,
+    )
+    from gaussianeditor_tpu_torch.ops.render import (
+        default_max_instances,
+        preprocess_scene,
+    )
+    from gaussianeditor_tpu_torch.ops.tile_composite import (
+        backward_tiles,
+        forward_tiles,
+    )
+    from gaussianeditor_tpu_torch.train.lpips import LPIPS, random_weights
+
+    dev = torch.device(device)
+    tm = Timers(dev)
+    scene = load_ply(ply, capacity=4 * ply_vertex_count(ply), device=dev)
+    before = snapshot(scene)
+    nb = int(scene.alive.sum())
+    cams = orbit_cameras(EDIT_VIEWS, 4.0, 0.8, 0.8, size, size, device=dev)
+    bbox = tuple(int(v * size // SIZE) for v in ADD_BBOX)
+    # configs/add.yaml's `system` block, with the bbox and anchor view of
+    # this scene and the refinement's steps
+    cfg = add_system.AddConfig(
+        inpaint_prompt="a teddy bear", anchor_view_id=0, bbox=bbox,
+        refine_steps=ADD_STEPS, cameras_extent=cameras_extent, seed=SEED)
+    sys_ = add_system.AddSystem(
+        scene, cams, cfg, inpainter=tm.wrap("inpaint", FakeInpainter()),
+        object_generator=tm.wrap("object", FakeObjectGenerator(
+            ADD_POINTS, device=dev)),
+        perceptual=LPIPS(random_weights(0)))
+    patched = [(add_system, "render"), (add_system, "place_object_in_scene"),
+               (add_system, "concat_scenes")]
+    saved = [getattr(m, a) for m, a in patched]
+    for (m, a), fn in zip(patched, saved):
+        setattr(m, a, tm.wrap(a, fn))
+    try:
+        _kernels.reset_launch_counts()
+        tm.sync()
+        t0 = time.perf_counter()
+        merged = sys_.run()
+        tm.sync()
+        run_ms = 1e3 * (time.perf_counter() - t0)
+        c_run = _kernels.launch_counts()
+    finally:
+        for (m, a), fn in zip(patched, saved):
+            setattr(m, a, fn)
+    C = merged.capacity
+    assert_launches(c_run, dict(binning_key=1, forward_tile=1), "Add run")
+    assert C == nb + ADD_POINTS, (C, nb)
+    assert merged.alive.all()
+    assert not merged.mask[:nb].any() and merged.mask[nb:].all(), \
+        "the merged mask must mark exactly the object"
+    assert_unchanged(scene, before, "Add: the caller's scene")
+    print(f"add: run() {run_ms:.1f} ms: tiled render {tm.total('render'):.1f},"
+          f" inpaint {tm.total('inpaint'):.1f}, object "
+          f"{tm.total('object'):.1f}, placement "
+          f"{tm.total('place_object_in_scene'):.1f}, concat_scenes "
+          f"{tm.total('concat_scenes'):.1f} ms; merged scene {C} slots "
+          f"({nb} + {ADD_POINTS}), the mask marks the last {ADD_POINTS}; "
+          f"launches {c_run}", flush=True)
+
+    # --- B4 at C = nb + ADD_POINTS, against its plain version ---
+    with torch.no_grad():
+        proc = preprocess_scene(merged, cams[0])
+        gx = gy = size // 16
+        sb = sorted_bin(proc, gx, gy, default_max_instances(C))
+        tiles = forward_tiles(sb, gx, 3)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+        g = [torch.randn((gx * gy, 256, 3), generator=gen, device=dev),
+             0.1 * torch.randn((gx * gy, 256), generator=gen, device=dev),
+             0.05 * torch.randn((gx * gy, 256), generator=gen, device=dev)]
+        rows = backward_tiles(sb.tile_bounds, sb.payload, sb.rank, tiles,
+                              *g, gx, 3)
+        b_incl, tt = sb.b_incl, proc.tiles_touched
+        d = rank_segment_sum(rows, b_incl, tt, C)
+        d_plain = rank_segment_sum_plain(rows, b_incl, tt, C)
+    rms = d_plain.pow(2).mean(dim=0).sqrt()
+    rel = float(((d - d_plain).abs() / rms).max())
+    assert rel <= 1e-5, f"B4 at C = {C}: {rel} of the column RMS"
+    b4_ms = b4_base_ms = None
+    if dev.type == "cuda":
+        b4_ms = time_ms(lambda: rank_segment_sum(rows, b_incl, tt, C))
+        # the same view's rows from the caller's scene (4x capacity)
+        with torch.no_grad():
+            p4 = preprocess_scene(scene, cams[0])
+            s4 = sorted_bin(p4, gx, gy, default_max_instances(scene.capacity))
+            r4 = backward_tiles(s4.tile_bounds, s4.payload, s4.rank,
+                                forward_tiles(s4, gx, 3), *g, gx, 3)
+        b4_base_ms = time_ms(lambda: rank_segment_sum(
+            r4, s4.b_incl, p4.tiles_touched, scene.capacity))
+        del p4, s4, r4
+    print(f"add: B4 at C = {C} ({C % 256} slots in its last block), "
+          f"{rows.shape[1]} rows x {rows.shape[0]} fields: max abs err vs "
+          f"plain {float((d - d_plain).abs().max()):.3g} ({rel:.3g} of the "
+          f"column RMS); {b4_ms} ms, and {b4_base_ms} ms on the same view's "
+          f"rows of the {scene.capacity}-slot scene", flush=True)
+    del proc, sb, tiles, g, rows, d, d_plain
+
+    # --- the refinement (apps/launch.py's, after run()) ---
+    class CountingGuidance(FakeGuidance):
+        calls = 0
+
+        def __call__(self, rgb, cond_rgb, prompt):
+            CountingGuidance.calls += 1
+            return super().__call__(rgb, cond_rgb, prompt)
+
+    sys_.guidance = CountingGuidance()
+    rec = []
+    last = [0.0]
+
+    def callback(step, m):
+        tm.sync()
+        now = time.perf_counter()
+        rec.append(dict(ms=1e3 * (now - last[0]),
+                        m={k: float(v) for k, v in m.items()}))
+        last[0] = time.perf_counter()
+
+    sys_.render_all_views = tm.wrap("origin", sys_.render_all_views)
+    start = {k: v.detach().clone() for k, v in merged.params().items()}
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launch_counts()
+    tm.sync()
+    last[0] = time.perf_counter()
+    state = sys_.fit(n_steps=ADD_STEPS, callback=callback)
+    tm.sync()
+    c_refine = _kernels.launch_counts()
+    refresh = CountingGuidance.calls
+    n = 2 * ADD_STEPS
+    assert_launches(c_refine, dict(
+        binning_key=EDIT_VIEWS + n + refresh,
+        forward_tile=EDIT_VIEWS + n + refresh,
+        backward_tile=n, rank_segment_sum=n), "Add refinement")
+    out = state.scene
+    for k, v in start.items():
+        if k != "quats":   # the rotation is not gated by the mask
+            assert torch.equal(getattr(out, k)[:nb], v[:nb]), \
+                f"refinement moved the base's {k}"
+        assert torch.isfinite(getattr(out, k)).all(), k
+    moved = (out.xyz[nb:] != start["xyz"][nb:]).any(dim=1)
+    assert moved.any() and (out.features_dc[nb:]
+                            != start["features_dc"][nb:]).any(), \
+        "the object did not move"
+    for x in rec:
+        assert all(math.isfinite(v) for v in x["m"].values()), x
+    ms = [x["ms"] for x in rec]
+    # the first step holds the origin renders of on_fit_start
+    ms[0] -= tm.total("origin")
+    peak = (torch.cuda.max_memory_allocated() / 2**30
+            if dev.type == "cuda" else float("nan"))
+    print("add: refinement loss by step: " + ", ".join(
+        f"{x['m']['loss']:.6f}" for x in rec), flush=True)
+    print(f"add: {ADD_STEPS} refinement steps over {C} slots ({refresh} "
+          f"target refreshes): ms per step (host clock, synchronised; the "
+          f"origin renders, {tm.total('origin'):.1f} ms, taken out) median "
+          f"{statistics.median(ms):.2f}, every step: "
+          + ", ".join(f"{t:.1f}" for t in ms)
+          + f"; {int(moved.sum())} of {ADD_POINTS} object Gaussians moved, "
+          f"the base's parameters but its rotations bitwise unchanged; "
+          f"peak device memory {peak:.2f} GiB; launches {c_refine}",
+          flush=True)
+    if dev.type == "cuda":
+        sys_.fit(n_steps=1)   # step 10 refreshes its targets; 11 does not
+        profile_once(lambda: sys_.fit(n_steps=1),
+                     f"one plain Add refinement step (step 11, {C} slots)",
+                     top=12)
+    del sys_, merged, state, out, start
+
+    # --- the mesh object: fit_colorless_mesh on a sphere ---
+    verts, faces = uv_sphere(*SPHERE)
+    losses = []
+    targets = []
+    saved_raster = mesh_to_gs.render_mesh_lambertian
+
+    def keep_target(*a, **k):
+        targets.append(saved_raster(*a, **k))
+        return targets[-1]
+
+    mesh_to_gs.render_mesh_lambertian = tm.wrap("raster", keep_target)
+    saved_pf = mesh_to_gs.photometric_fit
+    mesh_to_gs.photometric_fit = tm.wrap("fit", saved_pf)
+    mesh_step = []
+    last = [0.0]
+
+    def mesh_cb(step, m):
+        tm.sync()
+        now = time.perf_counter()
+        if step > 0:
+            mesh_step.append(1e3 * (now - last[0]))
+        losses.append(float(m["loss"]))
+        last[0] = time.perf_counter()
+
+    hw = MESH_HW * size // SIZE
+    try:
+        _kernels.reset_launch_counts()
+        tm.sync()
+        t0 = time.perf_counter()
+        obj = mesh_to_gs.fit_colorless_mesh(
+            (verts, faces), n_samples=MESH_SAMPLES, n_views=MESH_VIEWS,
+            hw=hw, steps=MESH_STEPS, seed=SEED, device=dev, callback=mesh_cb)
+        tm.sync()
+        mesh_ms = 1e3 * (time.perf_counter() - t0)
+        c_mesh = _kernels.launch_counts()
+    finally:
+        mesh_to_gs.render_mesh_lambertian = saved_raster
+        mesh_to_gs.photometric_fit = saved_pf
+    n = 2 * MESH_STEPS
+    assert_launches(c_mesh, dict(binning_key=n, forward_tile=n,
+                                 backward_tile=n, rank_segment_sum=n),
+                    "mesh fit")
+    assert obj.capacity == MESH_SAMPLES
+    assert len(losses) == MESH_STEPS and all(map(math.isfinite, losses))
+    # the loss falling: L1 over all the views against their targets, of
+    # the fitted object and of the same object before the fit (each
+    # step's loss covers 2 random views, and its noise from view to view
+    # is of the order of what 20 steps take off)
+    from gaussianeditor_tpu_torch.models.gaussians import GaussianScene
+    from gaussianeditor_tpu_torch.ops.render import render
+
+    pts, cols = mesh_to_gs.sample_mesh_surface(verts, faces, MESH_SAMPLES,
+                                               None, SEED)
+    init = GaussianScene.from_points(pts, cols, max_sh_degree=0, device=dev)
+    mcams, _ = mesh_to_gs._orbit_around(verts, MESH_VIEWS, 2.5, hw, dev)
+    err = {}
+    with torch.no_grad():
+        for name, scn in (("init", init), ("fitted", obj)):
+            err[name] = statistics.mean(
+                float((render(scn, c).color
+                       - torch.as_tensor(t, device=dev)).abs().mean())
+                for c, t in zip(mcams, targets))
+    assert err["fitted"] < err["init"], \
+        f"the mesh fit's loss did not fall: {err}"
+    print(f"add: fit_colorless_mesh on a {len(faces)}-face sphere, "
+          f"{MESH_SAMPLES} samples, {MESH_VIEWS} views at {hw}x{hw}, "
+          f"{MESH_STEPS} steps: {mesh_ms:.1f} ms, of which rasterizing "
+          f"{tm.total('raster'):.1f} ms, the fit {tm.total('fit'):.1f} ms "
+          f"(step median {statistics.median(mesh_step):.2f} ms after the "
+          f"first); loss by step " + ", ".join(f"{v:.5f}" for v in losses)
+          + f"; L1 over the {MESH_VIEWS} views {err['init']:.5f} before the "
+          f"fit, {err['fitted']:.5f} after; launches {c_mesh}", flush=True)
+    if dev.type == "cuda":
+        print(f"add: the numbers above on {nvidia_smi()}", flush=True)
+    return dict(add=c_run, add_refine=c_refine, mesh_fit=c_mesh,
+                b4_add_ms=b4_ms, run_ms=run_ms,
+                refine_ms=statistics.median(ms))
 
 
 def main() -> int:
     import torch
+
+    t_start = time.perf_counter()
 
     # 1. device
     if not torch.cuda.is_available():
@@ -1473,6 +2200,15 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
+    # the host KNN (native/simple_knn.cpp) that from_points takes: built
+    # by g++; the scipy fallback must not be taken here
+    from gaussianeditor_tpu_torch import native
+
+    t0 = time.perf_counter()
+    assert native.get_lib() is not None, "the native KNN did not build"
+    print(f"build: native KNN {time.perf_counter() - t0:.2f} s "
+          f"({native.lib_path().name})", flush=True)
+    walls = {"1-2": time.perf_counter() - t_start}
 
     with tempfile.TemporaryDirectory() as tmp:
         # the scene as the viewer loads it: a PLY at 4x capacity
@@ -1522,10 +2258,29 @@ def main() -> int:
         del tr
         torch.cuda.empty_cache()
 
+        walls["3-9"] = time.perf_counter() - t_start - sum(walls.values())
+
         # 10. the edit loop, from the PLY loaded again
         ed = phase_edit(ply, thres, extent, tmp)
         b4["ms_by_route"]["tracing"] = ed["b4_tracing_ms"]
         b4["index_add_ms_tracing"] = ed["index_add_ms"]
+        walls["10"] = time.perf_counter() - t_start - sum(walls.values())
+        torch.cuda.empty_cache()
+
+        # 11. the tiled route and click tracing
+        ck = phase_click(ply)
+        walls["11"] = time.perf_counter() - t_start - sum(walls.values())
+        torch.cuda.empty_cache()
+
+        # 12. Delete, with phase 10's segmentor
+        dl = phase_del(ply, extent, *ed["seg"])
+        walls["12"] = time.perf_counter() - t_start - sum(walls.values())
+        torch.cuda.empty_cache()
+
+        # 13. Add, its refinement and the mesh object
+        ad = phase_add(ply, extent)
+        b4["ms_by_route"]["add"] = ad["b4_add_ms"]
+        walls["13"] = time.perf_counter() - t_start - sum(walls.values())
 
     # launches on each kernel's own path: B1 and B2 serve frames (phase
     # 4), B3 and B4 train (phase 7), B5 and B6 train on the dense route
@@ -1545,7 +2300,16 @@ def main() -> int:
                                  "train_dense": dense_counts[key],
                                  "edit_origin": ed["origin"][key],
                                  "edit_tracing": ed["tracing"][key],
-                                 "edit_steps": ed["steps"][key]}
+                                 "edit_steps": ed["steps"][key],
+                                 "click": ck["click"][key],
+                                 "del_setup": dl["setup"][key],
+                                 "del_steps": dl["steps"][key],
+                                 "add": ad["add"][key],
+                                 "add_refine": ad["add_refine"][key],
+                                 "mesh_fit": ad["mesh_fit"][key]}
+    print("wall time by phase (s): " + ", ".join(
+        f"{k} {v:.1f}" for k, v in walls.items())
+        + f"; total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

@@ -1,13 +1,13 @@
 """Deterministic fakes for guidance, segmentation and inpainting.
 
 Counterpart of `gaussianeditor_tpu/guidance/fake.py` (`FakeGuidance`,
-`FakeSegmentor`, `FakePointSegmentor`, `FakeInpainter`), copied: they are
-numpy, so both packages give bitwise equal outputs on the same inputs.
+`FakeSegmentor`, `FakePointSegmentor`, `FakeInpainter`,
+`FakeObjectGenerator`), copied: they are numpy, so both packages give
+bitwise equal outputs on the same inputs.
 They make the editing loop testable without checkpoints or network: the
 fake guidance applies a fixed prompt-derived linear color transform to
 the origin render, a consistent and reachable multi-view target.
-(`FakeLatentModel` and `FakeObjectGenerator` come with the score and Add
-slices.)
+(`FakeLatentModel` comes with the score slice.)
 """
 
 from __future__ import annotations
@@ -77,6 +77,29 @@ class FakePointSegmentor:
         ref = img[y, x]
         d = np.linalg.norm(img - ref[None, None], axis=-1)
         return (d < self.radius).astype(np.float32)
+
+
+class FakeObjectGenerator:
+    """Deterministic `ObjectGenerator`: a Gaussian blob of `n_points`
+    points tinted with the input image's mean colour, built on `device`
+    at SH degree 0; the stand-in for the Wonder3D pipeline
+    (edit/wonder3d_adapter.py)."""
+
+    def __init__(self, n_points: int = 2000, seed: int = 0, device="cuda"):
+        self.n_points = n_points
+        self.seed = seed
+        self.device = device
+
+    def __call__(self, image, prompt: str):
+        from gaussianeditor_tpu_torch.models.gaussians import GaussianScene
+
+        rng = np.random.RandomState(self.seed)
+        pts = rng.normal(0, 0.3, (self.n_points, 3)).astype(np.float32)
+        img = np.asarray(image, np.float32)
+        color = img[..., :3].reshape(-1, 3).mean(0)
+        return GaussianScene.from_points(
+            pts, np.tile(color, (self.n_points, 1)), max_sh_degree=0,
+            device=self.device)
 
 
 class FakeInpainter:

@@ -12,6 +12,8 @@ Dead slots carry zeros in every parameter.
 Where the JAX scene returns a new pytree (`update_anchor`, `set_mask`,
 `one_up_sh_degree`), the port updates its buffers in place and returns
 the scene; `localized` returns a view that shares the parameters.
+`compact` and `concat_scenes` change the capacity, so they return new
+scenes and leave their inputs as they were.
 """
 
 from __future__ import annotations
@@ -256,3 +258,61 @@ class GaussianScene(nn.Module):
             n_generations=self.n_generations.clone(),
             active_sh_degree=self.active_sh_degree.clone(),
         )
+
+    @torch.no_grad()
+    def compact(self) -> "GaussianScene":
+        """A new scene of the alive slots only, in slot order, every
+        parameter and buffer kept (one host read of the alive count)."""
+        keep = self.alive
+
+        def take(x):
+            return x[keep].clone()
+
+        return GaussianScene(
+            {k: take(v) for k, v in self.params().items()},
+            max_sh_degree=self.max_sh_degree,
+            alive=take(self.alive),
+            mask=take(self.mask),
+            generation=take(self.generation),
+            anchor={k: take(v) for k, v in self.anchor().items()},
+            anchor_weights=self.anchor_weights.clone(),
+            n_generations=self.n_generations.clone(),
+            active_sh_degree=self.active_sh_degree.clone(),
+        )
+
+
+@torch.no_grad()
+def concat_scenes(base: GaussianScene, obj: GaussianScene) -> GaussianScene:
+    """Merge an added object into a scene: a new scene holding the alive
+    slots of `base`, then those of `obj` (the reference's
+    `concat_gaussians`, gaussian_model.py:900-923). The object's SH rest
+    is padded with zeros or cut to the base's degree; the scene is
+    created with the base's first anchor weight and active SH degree
+    (generations reset), its mask marks only the object, so training
+    refines the insertion without disturbing the scene, and the anchor
+    is the merged parameters. Both scenes must be on one device."""
+    if base.device != obj.device:
+        raise ValueError(f"concat_scenes: the base scene is on {base.device} "
+                         f"and the object on {obj.device}; move one first")
+    base = base.compact()
+    obj = obj.compact()
+    kb = sh_utils.num_sh_bases(base.max_sh_degree)
+    ko = sh_utils.num_sh_bases(obj.max_sh_degree)
+    obj_rest = obj.features_rest
+    if ko < kb:  # pad the object's SH up to the scene's degree
+        obj_rest = torch.nn.functional.pad(obj_rest, (0, 0, 0, kb - ko))
+    elif ko > kb:
+        obj_rest = obj_rest[:, : kb - 1]
+    params = {k: torch.cat([getattr(base, k), getattr(obj, k)], dim=0)
+              for k in PARAM_NAMES if k != "features_rest"}
+    params["features_rest"] = torch.cat([base.features_rest, obj_rest], dim=0)
+    nb, no = base.capacity, obj.capacity
+    merged = GaussianScene.create(
+        params,
+        max_sh_degree=base.max_sh_degree,
+        anchor_weight_init_g0=float(base.anchor_weights[0]),
+        active_sh_degree=int(base.active_sh_degree),
+    )
+    mask = torch.cat([torch.zeros((nb,), dtype=torch.bool, device=base.device),
+                      torch.ones((no,), dtype=torch.bool, device=base.device)])
+    return merged.set_mask(mask).update_anchor()

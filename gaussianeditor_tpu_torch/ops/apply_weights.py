@@ -46,6 +46,7 @@ from gaussianeditor_tpu_torch.core.cameras import Camera
 from gaussianeditor_tpu_torch.ops.binning_sorted import (
     rank_segment_sum,
     sorted_bin,
+    tiled_depth_bits,
 )
 from gaussianeditor_tpu_torch.ops.composite import ALPHA_MAX, ALPHA_MIN, T_MIN
 from gaussianeditor_tpu_torch.ops.preprocess import TILE, preprocess
@@ -105,9 +106,8 @@ def apply_weights(
     num_tiles = grid_x * grid_y
     if max_instances is None:
         max_instances = default_max_instances(Cap)
-    tile_bits = max((num_tiles + 1).bit_length(), 1)
     sb = sorted_bin(proc, grid_x, grid_y, max_instances,
-                    depth_bits=32 - tile_bits)
+                    depth_bits=tiled_depth_bits(num_tiles))
     n = sb.rank.shape[0]
     if n == 0:
         return weights, weights_cnt, sb.overflow

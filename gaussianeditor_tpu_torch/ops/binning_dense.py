@@ -41,7 +41,10 @@ from typing import NamedTuple
 
 import torch
 
-from gaussianeditor_tpu_torch.ops.binning_sorted import DEAD_KEY
+from gaussianeditor_tpu_torch.ops.binning_sorted import (
+    DEAD_KEY,
+    tiled_depth_bits,
+)
 from gaussianeditor_tpu_torch.ops.preprocess import ProcessedGaussians
 
 CHUNK = 128
@@ -77,12 +80,6 @@ def dense_capacities(max_instances: int, num_tiles: int):
     return R, R2, R2 // CHUNK
 
 
-def depth_key_bits(num_tiles: int) -> int:
-    """Depth bits of the dense [tile | depth] key: what the tile id
-    leaves of 32 bits."""
-    return 32 - max((num_tiles + 1).bit_length(), 1)
-
-
 def dense_bin(proc: ProcessedGaussians, grid_x: int, grid_y: int,
               max_instances: int) -> DenseBinning:
     """Bin every visible Gaussian into the tiles of its rect, sort the
@@ -94,7 +91,7 @@ def dense_bin(proc: ProcessedGaussians, grid_x: int, grid_y: int,
     dev = proc.tiles_touched.device
     i64 = torch.int64
     R = _round_up(max_instances, CHUNK)
-    db = depth_key_bits(T)
+    db = tiled_depth_bits(T)
 
     tt = proc.tiles_touched
     b_incl = torch.cumsum(tt, 0, dtype=torch.int32)

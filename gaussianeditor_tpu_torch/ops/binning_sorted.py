@@ -69,11 +69,17 @@ class SortedBinning(NamedTuple):
     overflow: torch.Tensor      # scalar bool: num_rendered > R
 
 
+def tiled_depth_bits(num_tiles: int) -> int:
+    """What the tile id leaves of a 32-bit [tile | depth] key: the depth
+    cut of the JAX `ops/binning.py::bin_and_sort`, which its 'tiled'
+    render and its tracing sort with."""
+    return 32 - max((num_tiles + 1).bit_length(), 1)
+
+
 def key_depth_bits(num_tiles: int) -> int:
-    """Depth bits of the [tile | depth] key: what the tile id leaves of
-    32 bits, at most 24."""
-    tile_bits = max((num_tiles + 1).bit_length(), 1)
-    return min(32 - tile_bits, 24)
+    """Depth bits of the [tile | depth] key: `tiled_depth_bits`, at most
+    24."""
+    return min(tiled_depth_bits(num_tiles), 24)
 
 
 def _key_inputs(proc: ProcessedGaussians):
@@ -154,11 +160,11 @@ def sorted_bin(proc: ProcessedGaussians, grid_x: int, grid_y: int,
     C = proc.tiles_touched.shape[0]
     dev = proc.tiles_touched.device
     R = _round_up(max_instances, CHUNK)
-    tile_bits = max((num_tiles + 1).bit_length(), 1)
     kdb = key_depth_bits(num_tiles) if depth_bits is None else int(depth_bits)
-    if not 1 <= kdb <= 32 - tile_bits:
-        raise ValueError(f"depth_bits {kdb} outside [1, {32 - tile_bits}] "
-                         f"for {num_tiles} tiles")
+    if not 1 <= kdb <= tiled_depth_bits(num_tiles):
+        raise ValueError(f"depth_bits {kdb} outside "
+                         f"[1, {tiled_depth_bits(num_tiles)}] for "
+                         f"{num_tiles} tiles")
 
     b_incl = torch.cumsum(proc.tiles_touched, 0, dtype=torch.int32)
     total = int(b_incl[-1]) if C > 0 else 0   # the one host read

@@ -5,22 +5,31 @@ Counterpart of `gaussianeditor_tpu/ops/render.py` (`RenderOutput`,
 channels-last, [H, W, C], as in the JAX package; `bg` is added after
 compositing, weighted by the final transmittance.
 
-Two routes, chosen by `impl` as in the JAX package:
+Three routes, chosen by `impl` as in the JAX package:
   * 'pallas' (the default, also `None`): sorted binning and the tile
     compositor, kernels B1 and B2 forward (`csrc/binning_key.cu`,
     `csrc/forward_tile.cu`) and B3 and B4 backward
     (`csrc/backward_tile.cu`, `csrc/rank_segment_sum.cu`). Its kernels
     take 1 to 3 channels; a wider render takes the dense route, as the
     JAX package routes it.
+  * 'tiled': the same kernels, with the depth key of the JAX 'tiled'
+    route, 32 - tile_bits bits (`ops/binning.py:82-84`) where 'pallas'
+    keeps at most 24. The JAX route composites with its plain-XLA scan
+    (`composite_tiles`), which truncates each tile at `tile_cap`
+    instances and then sets `overflow`; the port walks every tile whole,
+    so its 'tiled' render is what the JAX `render_safe(impl="tiled")`
+    returns once its retries have raised the cap past the longest tile,
+    and `overflow` is the budget's alone.
   * 'pallas4': dense (chunk-aligned) binning and the chunk compositor,
     kernels B5 forward (`csrc/forward_chunk.cu`) and B6 then B4 backward
-    (`csrc/backward_chunk.cu`), for 1 to 32 channels.
+    (`csrc/backward_chunk.cu`), for 1 to 32 channels. Its depth key keeps
+    32 - tile_bits bits too.
 On CPU tensors each kernel's plain version runs instead. The JAX
 package also sends budgets above 2^24 to 'pallas4', because its sorted
 route carries ints through f32; here ints stay int32 and int64 keys, so
-every budget takes the route `impl` names. 'tiled' and 'ref' (the JAX
-package's plain-XLA scan compositor and dense oracle) are not ported yet
-and raise.
+every budget takes the route `impl` names. `tile_cap` and `chunk` (the
+JAX scan compositor's knobs) are accepted on every route and ignored.
+'ref' (the JAX package's dense oracle) is not ported yet and raises.
 
 Differentiable: under autograd the preprocess is differentiated as
 plain torch and the compositor through `TileComposite` or
@@ -32,6 +41,7 @@ reference's `screenspace_points`.
 
 from __future__ import annotations
 
+import math
 import warnings
 from typing import NamedTuple, Optional
 
@@ -39,7 +49,10 @@ import torch
 
 from gaussianeditor_tpu_torch.core.cameras import Camera
 from gaussianeditor_tpu_torch.ops.binning_dense import dense_bin
-from gaussianeditor_tpu_torch.ops.binning_sorted import sorted_bin
+from gaussianeditor_tpu_torch.ops.binning_sorted import (
+    sorted_bin,
+    tiled_depth_bits,
+)
 from gaussianeditor_tpu_torch.ops.composite import tiles_to_image
 from gaussianeditor_tpu_torch.ops.dense_composite import DenseComposite
 from gaussianeditor_tpu_torch.ops.preprocess import TILE, preprocess
@@ -48,7 +61,7 @@ from gaussianeditor_tpu_torch.ops.tile_composite import (
     TileComposite,
 )
 
-IMPLS = (None, "pallas", "pallas4")
+IMPLS = (None, "pallas", "pallas4", "tiled")
 
 
 class RenderOutput(NamedTuple):
@@ -61,6 +74,44 @@ class RenderOutput(NamedTuple):
     num_rendered: torch.Tensor  # scalar int32
     overflow: torch.Tensor     # scalar bool
     n_contrib: torch.Tensor    # [H, W] int32 last-contributor position
+
+
+def point_cloud_render(
+    xyz: torch.Tensor,
+    camera: Camera,
+    *,
+    point_scale: float = 0.01,
+    color: Optional[torch.Tensor] = None,
+    bg: Optional[torch.Tensor] = None,
+    **kwargs,
+) -> RenderOutput:
+    """Render raw points [N, 3] as opaque Gaussians of a fixed size
+    (`point_scale`), white unless `color` [N, ch] is given, at SH degree
+    0 on the points' device: the reference's `point_cloud_render` debug
+    view (gaussian_renderer/__init__.py:156-250). `kwargs` go to
+    `render`. No gradient flows: the scene is built from a copy of the
+    points."""
+    from gaussianeditor_tpu_torch.models.gaussians import GaussianScene
+
+    xyz = torch.as_tensor(xyz, dtype=torch.float32)
+    dev = xyz.device
+    n = xyz.shape[0]
+    f32 = dict(dtype=torch.float32, device=dev)
+    quats = torch.zeros((n, 4), **f32)
+    quats[:, 0] = 1.0
+    params = dict(
+        xyz=xyz,
+        features_dc=torch.zeros((n, 1, 3), **f32),
+        features_rest=torch.zeros((n, 0, 3), **f32),
+        opacity_raw=torch.full((n, 1), 10.0, **f32),  # about opaque
+        log_scales=torch.full((n, 3), math.log(point_scale), **f32),
+        quats=quats,
+    )
+    scene = GaussianScene.create(params, max_sh_degree=0)
+    if color is None:
+        color = torch.ones((n, 3), **f32)
+    with torch.no_grad():
+        return render(scene, camera, bg, override_color=color, **kwargs)
 
 
 def default_max_instances(capacity: int) -> int:
@@ -101,18 +152,22 @@ def render(
     mean2d_offset_ndc: Optional[torch.Tensor] = None,
     impl: Optional[str] = None,
     max_instances: Optional[int] = None,
+    tile_cap: int = 1024,
+    chunk: int = 128,
 ) -> RenderOutput:
     """Render `scene` through `camera` on the scene's device.
 
     impl: None or 'pallas' (sorted route; renders of more than 3 channels
-    take the dense route) or 'pallas4' (dense route).
+    take the dense route), 'tiled' (the sorted route at the JAX 'tiled'
+    route's depth cut) or 'pallas4' (dense route).
     max_instances: total tile-instance budget; exceeding it sets
-    `overflow` (see `render_safe`)."""
+    `overflow` (see `render_safe`). tile_cap, chunk: accepted and ignored
+    (every tile is walked whole)."""
     if impl not in IMPLS:
-        if impl in ("tiled", "ref"):
+        if impl == "ref":
             raise ValueError(
-                f"render impl {impl!r} is not ported yet: the JAX package's "
-                "plain-XLA routes come with the slices that need them "
+                "render impl 'ref' is not ported yet: the JAX package's "
+                "dense oracle comes with the slice that needs it "
                 "(ROADMAP.md, queue A)")
         raise ValueError(f"render impl must be one of {IMPLS}, got {impl!r}")
     dev = scene.device
@@ -140,8 +195,11 @@ def render(
         tiles = DenseComposite.apply(*comp_args, binning, proc.tiles_touched,
                                      grid_x)
     else:
+        depth_bits = (tiled_depth_bits(grid_x * grid_y) if impl == "tiled"
+                      else None)
         with torch.no_grad():
-            binning = sorted_bin(proc, grid_x, grid_y, max_instances)
+            binning = sorted_bin(proc, grid_x, grid_y, max_instances,
+                                 depth_bits=depth_bits)
         tiles = TileComposite.apply(*comp_args, binning, proc.tiles_touched,
                                     grid_x)
     t_color, t_depth, t_final_T, t_nc = tiles
@@ -168,7 +226,8 @@ def render(
 def render_safe(scene, camera: Camera, bg=None, *, max_retries: int = 3,
                 max_instances: Optional[int] = None, **kwargs) -> RenderOutput:
     """`render`, re-rendered at double the budget while it overflows (at
-    most `max_retries` times)."""
+    most `max_retries` times). Only `max_instances` doubles: the port has
+    no tile cap to raise."""
     if max_instances is None:
         max_instances = default_max_instances(scene.capacity)
     for attempt in range(max_retries + 1):

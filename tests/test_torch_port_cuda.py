@@ -626,3 +626,137 @@ def test_edit_steps_with_lpips_repeat_bitwise(cuda):
     assert torch.equal(a.state.scene.mask, b.state.scene.mask)
     assert torch.equal(a.state.stats.xyz_gradient_accum,
                        b.state.stats.xyz_gradient_accum)
+
+
+def test_tiled_render_is_the_sorted_route_at_the_tiled_cut(cuda):
+    """impl='tiled' is B1 at 32 - tile_bits depth bits, then B2: bitwise
+    equal to `sorted_bin(depth_bits=...)` then `forward_tiles`, and only
+    those kernels forward; under autograd B3 and B4 take the backward."""
+    from gaussianeditor_tpu_torch.ops.composite import tiles_to_image
+
+    scene = _scene(20000, cuda, seed=8, capacity=24000)
+    cam = lookat_camera((0, 0, -4), (0, 0, 0), (0, 1, 0), 0.8, 0.8, 160, 256,
+                        device=cuda)
+    gx, gy = 16, 10
+    bits = 32 - max((gx * gy + 1).bit_length(), 1)
+    _kernels.reset_launch_counts()
+    with torch.no_grad():
+        out = render(scene, cam, impl="tiled", tile_cap=3, chunk=5)
+    assert _kernels.launch_counts() == dict(NO_LAUNCHES, binning_key=1,
+                                            forward_tile=1)
+    with torch.no_grad():
+        proc = preprocess_scene(scene, cam)
+        sb = sorted_bin(proc, gx, gy, 1 << 22, depth_bits=bits)
+        tiles = forward_tiles(sb, gx, 3)
+    torch.cuda.synchronize()
+    for f, t in zip(("color", "depth", "final_T", "n_contrib"), tiles):
+        assert torch.equal(getattr(out, f),
+                           tiles_to_image(t, gx, gy, 160, 256)), f
+    assert not bool(out.overflow)
+    _kernels.reset_launch_counts()
+    loss = render(scene, cam, impl="tiled").color.sum()
+    loss.backward()
+    torch.cuda.synchronize()
+    assert _kernels.launch_counts() == dict(NO_LAUNCHES, binning_key=1,
+                                            forward_tile=1, backward_tile=1,
+                                            rank_segment_sum=1)
+    assert torch.isfinite(scene.xyz.grad).all() and scene.xyz.grad.any()
+
+
+@pytest.mark.parametrize("gf", [1, 10])
+def test_rank_segment_sum_kernel_at_an_odd_capacity(cuda, gf):
+    """B4 at C = 3 * 256 + 2 (a merged scene's capacity is no multiple of
+    its 256 slots a block), every slot alive, some with no rows."""
+    C = 3 * 256 + 2
+    rng = np.random.RandomState(gf)
+    counts = rng.zipf(1.6, C).clip(max=900) * (rng.rand(C) < 0.9)
+    counts[-1] = 37          # the last, partial block has rows
+    b_incl = torch.as_tensor(np.cumsum(counts).astype(np.int32), device=cuda)
+    tt = torch.as_tensor(counts.astype(np.int32), device=cuda)
+    rows = torch.randn((gf, int(counts.sum())), device=cuda)
+    got = rank_segment_sum(rows, b_incl, tt, C)
+    want = rank_segment_sum_plain(rows.cpu(), b_incl.cpu(), tt.cpu(), C)
+    torch.cuda.synchronize()
+    assert got.shape == (C, gf)
+    assert torch.equal(got.cpu(), want)
+
+
+def test_knn_dist_brute_on_cuda_matches_cpu(cuda):
+    from gaussianeditor_tpu_torch.ops.knn import knn_dist_brute
+
+    g = torch.Generator().manual_seed(0)
+    pts, qs = torch.rand((5000, 3), generator=g), torch.rand((700, 3),
+                                                            generator=g)
+    valid = torch.rand(5000, generator=g) < 0.8
+    want = knn_dist_brute(pts, qs, 4, valid=valid, chunk=256)
+    got = knn_dist_brute(pts.to(cuda), qs.to(cuda), 4, valid=valid.to(cuda),
+                         chunk=256)
+    assert got.device.type == "cuda"
+    scale = float((qs ** 2).sum(1).max() + (pts ** 2).sum(1).max())
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-5,
+                               atol=2 * np.finfo(np.float32).eps * scale)
+
+
+def _disk(hw, r):
+    ys, xs = np.mgrid[0:hw, 0:hw]
+    c = (hw - 1) / 2
+    return (((xs - c) ** 2 + (ys - c) ** 2) < r ** 2).astype(np.float32)
+
+
+def test_del_and_add_systems_repeat_bitwise(cuda):
+    """A small Delete (set-up and 3 steps) and Add (run and 2 refinement
+    steps) on the card, each run twice: bitwise equal, through B1-B4
+    only, and the caller's scene untouched."""
+    from gaussianeditor_tpu_torch.core.cameras import orbit_cameras
+    from gaussianeditor_tpu_torch.edit.add_system import AddConfig, AddSystem
+    from gaussianeditor_tpu_torch.edit.del_system import DelConfig, DelSystem
+    from gaussianeditor_tpu_torch.guidance.fake import (
+        FakeGuidance,
+        FakeInpainter,
+        FakeObjectGenerator,
+    )
+
+    scene = _scene(6000, cuda, seed=9, capacity=7000)
+    before = {k: v.clone() for k, v in scene.state_dict().items()}
+    cams = orbit_cameras(4, 4.0, 0.8, 0.8, 64, 64, device=cuda)
+    disk = _disk(64, 14)
+
+    def run_del():
+        cfg = DelConfig(seg_prompt="x", batch_size=2, max_steps=3,
+                        densify_until_step=0, cameras_extent=2.0,
+                        inpaint_scale=20.0, mask_dilate=2)
+        s = DelSystem(scene, cams, cfg, inpainter=FakeInpainter(),
+                      segmentor=lambda img, p: disk, perceptual=None)
+        ms = []
+        s.fit(callback=lambda i, m: ms.append(float(m["loss"])))
+        return s, ms
+
+    def run_add():
+        cfg = AddConfig(prompt="p", bbox=(16, 16, 48, 48), batch_size=2,
+                        densify_until_step=0, cameras_extent=2.0)
+        s = AddSystem(scene, cams, cfg, inpainter=FakeInpainter(),
+                      object_generator=FakeObjectGenerator(500, device=cuda))
+        s.run()
+        s.guidance = FakeGuidance()
+        ms = []
+        s.fit(n_steps=2, callback=lambda i, m: ms.append(float(m["loss"])))
+        return s, ms
+
+    for run in (run_del, run_add):
+        _kernels.reset_launch_counts()
+        a, ma = run()
+        counts = _kernels.launch_counts()
+        b, mb = run()
+        torch.cuda.synchronize()
+        assert counts["forward_chunk"] == counts["backward_chunk"] == 0
+        for k in ("binning_key", "forward_tile", "backward_tile",
+                  "rank_segment_sum"):
+            assert counts[k] > 0, (run.__name__, k)
+        assert ma == mb and np.isfinite(ma).all(), run.__name__
+        for k, v in a.state.scene.params().items():
+            assert torch.equal(v, getattr(b.state.scene, k)), k
+        assert torch.equal(a.state.scene.alive, b.state.scene.alive)
+        assert torch.equal(a.state.scene.mask, b.state.scene.mask)
+    assert b.state.scene.capacity == 6000 + 500
+    for k, v in scene.state_dict().items():
+        assert torch.equal(v, before[k]), k

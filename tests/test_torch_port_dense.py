@@ -354,7 +354,8 @@ def test_dense_route_bitwise_repeatable():
 
 def test_routing(monkeypatch):
     """More than 3 channels take the dense route unless impl says
-    otherwise; the plain-XLA routes of the JAX package raise."""
+    otherwise, on 'tiled' too; the JAX package's dense oracle 'ref'
+    raises."""
     calls = []
 
     def spy(*args):
@@ -372,8 +373,11 @@ def test_routing(monkeypatch):
         assert calls == [8]
         render(scene, cam, impl="pallas4")
         assert calls == [8, 3]
-        for impl in ("tiled", "ref"):
-            with pytest.raises(ValueError, match="ROADMAP"):
-                render(scene, cam, impl=impl)
+        render(scene, cam, impl="tiled")
+        assert calls == [8, 3]
+        render(scene, cam, impl="tiled", override_color=torch.ones(40, 5))
+        assert calls == [8, 3, 5]
+        with pytest.raises(ValueError, match="ROADMAP"):
+            render(scene, cam, impl="ref")
         with pytest.raises(ValueError, match="impl"):
             render(scene, cam, impl="dense")
