@@ -135,6 +135,38 @@ Phases, in order; any failure exits non-zero:
      surface samples, 16 views at 256x256, 20 steps (B1-B4 2 x 20): the
      L1 over the 16 views against the rasterizer's targets must be lower
      after the fit than before it.
+ 14. reconstruction and the CLI at full width: a COLMAP workspace made
+     from the PLY's scene (48 PINHOLE cameras at 1297x840 on two rings of
+     24, the port's renders as 8-bit PNGs, 150,000 SfM points: a seeded
+     subsample of the centres jittered by N(0, 0.01), coloured by the SH
+     DC term). First SSIM and its gradient on two targets under both
+     values of cuDNN's allow_tf32: a plain `F.conv2d` blur beside the
+     float64 value (printed), then `train.losses.ssim`, which must be
+     bitwise the same under either and repeat bitwise. Then
+     `launch.main(["--config", ..., "--train", "--test", "--export"])` in
+     this process, with torch's default TF32 flags and the launch counts
+     zeroed: recon from the points into 600,000 slots at SH degree 3, 300
+     steps (densify after 100 and 200, opacity reset after 250, SH one-up
+     at 75, 150 and 225), a 16-view turntable. B1 and B2 must launch 300
+     + 16 times, B3 and B4 300, B5 and B6 never; metrics.jsonl 300 finite
+     rows, the loss of the last 20 below the first 20's; last.ply at SH
+     degree 3 with an alive count other than 150,000; the PSNR of the
+     exported scene over 4 training views above the initial scene's; the
+     turntable 16 frames. At training view 0 of the result, B1-B4 against
+     their plain versions as phases 3 and 6 hold them (timed there), and
+     B2's n_contrib against the plain version's at views 0, 12, 24 and
+     36, a pixel that differs decided by replaying its walk: both counts
+     must be the float64 walk's within one float32 tie (the count printed
+     and in the JSON line); one plain step profiled; two fresh 40-step `ReconTrainer` fits through
+     every event bitwise equal. Then, as users start them, `python -m
+     gaussianeditor_tpu_torch.apps.launch` for edit (--train --validate
+     --export, LPIPS with random weights), del (--train --export) and add
+     (--train, 3 refinement steps), 3 steps each on the PLY at 512x512,
+     and `python -m gaussianeditor_tpu_torch.train.metrics` on 8 renders
+     of the result against their targets: each exits 0 and leaves its
+     files. Printed: the set-up parts, step medians by kind, the densify
+     requests and grants, peak memory, the turntable's and the export's
+     times, and each subprocess's wall time.
 Each phase prints its times beside the card's name and power limit;
 the script prints each phase's wall time and its total. Then it prints
 the kernels' JSON line (with each kernel's launches on every path), the
@@ -143,6 +175,7 @@ card's name and power limit, and, last, {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import contextlib
 import io
 import json
 import math
@@ -324,11 +357,104 @@ def row_stats(bounds, n_contrib, label: str, per: int = 1) -> dict:
     return out
 
 
+# a threshold decision within this relative distance is a float32 tie:
+# T is a product over up to ~1,500 rows, whose float32 rounding reaches
+# ~1e-6 relative (1.25e-6 seen on the card at row 960)
+TIE_REL = 1e-4
+
+
+def replay_nc_flips(sb, tk, tp, gx: int, label: str, limit: int = 64,
+                    device: str = "cuda") -> tuple:
+    """The pixels (at most `limit`) whose n_contrib differs between B2 and
+    its plain version, each walked again one row at a time with the plain
+    version's expressions: in float32 on the card (the plain version's
+    own evaluation, which must reproduce its n_contrib), in float32 on
+    the host and in float64. A row of the float64 walk is a tie when its
+    alpha or T (1 - alpha) lies within `TIE_REL` of 1/255 or T_MIN: there
+    float32 rounding alone (the kernel's FMA contractions, the card's
+    elementwise exp) can take the other decision. A pixel is decided when
+    the card's walk reproduces the plain version and both the kernel's
+    and the plain version's n_contrib are that of the float64 walk or of
+    the float64 walk with one tie decided the other way. Prints each
+    walk's n_contrib, the ties and the counts they reach. Returns the
+    number of pixels that differ and the number not decided: all of them
+    when more than `limit` pixels differ."""
+    import torch
+
+    from gaussianeditor_tpu_torch.ops.composite import (
+        ALPHA_MAX,
+        ALPHA_MIN,
+        T_MIN,
+    )
+
+    def walk(r, px, py, flip=None):
+        """n_contrib and the (decision, alpha, T (1 - alpha)) of each row
+        walked; the decision at row `flip` taken the other way."""
+        T = torch.ones((), dtype=r.dtype, device=r.device)
+        last, log = 0, []
+        for i in range(r.shape[1]):
+            x, y, a, b, c, op = (r[k, i] for k in range(6))
+            dx, dy = x - px, y - py
+            power = -0.5 * (a * dx * dx + c * dy * dy) - b * dx * dy
+            alpha = torch.clamp_max(op * torch.exp(power), ALPHA_MAX)
+            test_T = T * (1 - alpha)
+            d = ("skip" if power > 0 or alpha < ALPHA_MIN
+                 else "stop" if test_T < T_MIN else "add")
+            if i == flip:
+                near_alpha = (abs(float(alpha) - ALPHA_MIN) / ALPHA_MIN
+                              < abs(float(test_T) - T_MIN) / T_MIN)
+                d = ("add" if d != "add" else
+                     "skip" if near_alpha else "stop")
+            log.append((d, float(alpha), float(test_T)))
+            if d == "stop":
+                break
+            if d == "add":
+                T, last = test_T, i + 1
+        return last, log
+
+    bad = (tk.n_contrib != tp.n_contrib).nonzero().tolist()
+    print(f"B2 {label}: n_contrib differs from the plain version on "
+          f"{len(bad)} pixels", flush=True)
+    if len(bad) > limit:
+        return len(bad), len(bad)
+    unexplained = 0
+    for t, p in bad:
+        s, e = int(sb.tile_bounds[t]), int(sb.tile_bounds[t + 1])
+        px = float((t % gx) * 16 + p % 16)
+        py = float((t // gx) * 16 + p // 16)
+        rows = sb.payload[:, s:e].detach()
+        r64 = rows.to(device="cpu", dtype=torch.float64)
+        nc = walk(rows.to(device=device, dtype=torch.float32), px, py)[0]
+        nh = walk(rows.to(device="cpu", dtype=torch.float32), px, py)[0]
+        n64, l64 = walk(r64, px, py)
+        ties = [i for i, (d, alpha, test_T) in enumerate(l64)
+                if min(abs(alpha - ALPHA_MIN) / ALPHA_MIN,
+                       abs(test_T - T_MIN) / T_MIN) < TIE_REL]
+        reach = {n64} | {walk(r64, px, py, flip=i)[0] for i in ties}
+        nk, npl = int(tk.n_contrib[t, p]), int(tp.n_contrib[t, p])
+        ok = nc == npl and nk in reach and npl in reach
+        unexplained += not ok
+        tie_text = "; ".join(
+            f"row {i} {l64[i][0]} (alpha {l64[i][1]!r}, T (1 - alpha) "
+            f"{l64[i][2]!r})" for i in ties) or "none"
+        print(f"  tile {t} pixel {p} ({px:.0f}, {py:.0f}): kernel {nk}, "
+              f"plain {npl}; walks: card float32 {nc}, host float32 {nh}, "
+              f"float64 {n64}; float64 ties (1/255 {ALPHA_MIN!r}, T_MIN "
+              f"{T_MIN!r}): {tie_text}; n_contrib within one tie "
+              f"{sorted(reach)}; decided: {ok}", flush=True)
+    return len(bad), unexplained
+
+
 def check_kernels(proc, gx: int, gy: int, budget: int, label: str,
-                  time_plain: bool) -> dict:
+                  time_plain: bool, replay_flips: bool = False) -> dict:
     """B1 and B2 on one view's preprocessed inputs, each against its plain
     version; returns their errors, times and bounds, and B2's plain tiles.
-    The plain versions are timed only when `time_plain` is set."""
+    The plain versions are timed only when `time_plain` is set. B2's
+    n_contrib must equal the plain version's on every pixel; with
+    `replay_flips`, a pixel where they differ passes if that pixel's
+    walk replayed on the card reproduces the plain version's, and both
+    counts are the float64 walk's within one float32 tie
+    (`replay_nc_flips`)."""
     import torch
 
     from gaussianeditor_tpu_torch.ops.binning_sorted import (
@@ -404,7 +530,18 @@ def check_kernels(proc, gx: int, gy: int, budget: int, label: str,
         assert torch.isfinite(a).all(), f"B2 {label}: {name} not finite"
         assert_images_close(a, b, loose=loose, name=f"B2 {label} {name}")
     nc_eq = fraction_equal(tk.n_contrib, tp.n_contrib)
-    assert nc_eq == 1.0, f"B2 {label}: n_contrib equal on only {nc_eq:.6f}"
+    out["nc_replayed"] = 0
+    if replay_flips and nc_eq != 1.0:
+        # where the plain version's float32 arithmetic on the card parts
+        # from the kernel, the same walk in float32 on the host and in
+        # float64 decides
+        out["nc_replayed"], unexplained = replay_nc_flips(sb, tk, tp, gx,
+                                                          label)
+        assert unexplained == 0, \
+            f"B2 {label}: n_contrib differs on {unexplained} pixels"
+    else:
+        assert nc_eq == 1.0, \
+            f"B2 {label}: n_contrib equal on only {nc_eq:.6f}"
     out["b2_err"] = max(float((tk.color - tp.color).abs().max()),
                         float((tk.depth - tp.depth).abs().max()),
                         float((tk.final_T - tp.final_T).abs().max()))
@@ -466,7 +603,7 @@ def phase_kernels(scene, device) -> list:
     plain_img = torch.clamp(
         tiles_to_image(main["plain_tiles"].color, gx, gy, SIZE, SIZE), 0.0, 1.0)
     view = dict(proc=color_proc, sb=main["sb"], tiles=main["tiles"],
-                contrib=main["contrib"], gx=gx, budget=budget)
+                contrib=main["contrib"], gx=gx, gy=gy, budget=budget)
     return cam, plain_img.cpu().numpy(), view, [
         dict(name="B1 binning_key", route="cuda",
              source="gaussianeditor_tpu_torch/csrc/binning_key.cu",
@@ -609,9 +746,11 @@ def phase_profile(state) -> None:
         flush=True)
 
 
-def phase_backward(view) -> list:
+def phase_backward(view, time_plain: bool = True) -> list:
     """Phase 6: kernels B3 and B4 against their plain versions on phase
-    3's color view, with a seeded cotangent; returns their JSON rows."""
+    3's color view (or another view's, as phase 14 holds them), with a
+    seeded cotangent; returns their JSON rows. The plain versions are
+    timed only when `time_plain` is set."""
     import torch
 
     from gaussianeditor_tpu_torch.ops.binning_sorted import (
@@ -624,7 +763,7 @@ def phase_backward(view) -> list:
     )
 
     proc, sb, tiles, gx = view["proc"], view["sb"], view["tiles"], view["gx"]
-    T = gx * gx
+    T = gx * view["gy"]
     C = proc.tiles_touched.shape[0]
     n = sb.payload.shape[1]
     G = sb.payload.shape[0]
@@ -675,10 +814,12 @@ def phase_backward(view) -> list:
 
     # --- times and bounds ---
     b3_ms = time_ms(lambda: backward_tiles(*args))
-    b3_plain_ms = time_ms(lambda: backward_tiles_plain(*args), runs=3)
     b4_ms = time_ms(lambda: rank_segment_sum(rows, b_incl, tt, C))
-    b4_plain_ms = time_ms(lambda: rank_segment_sum_plain(rows, b_incl, tt, C),
-                          runs=3)
+    b3_plain_ms = b4_plain_ms = None
+    if time_plain:
+        b3_plain_ms = time_ms(lambda: backward_tiles_plain(*args), runs=3)
+        b4_plain_ms = time_ms(
+            lambda: rank_segment_sum_plain(rows, b_incl, tt, C), runs=3)
     # the library's segmented sum over rank-major rows, segments cut at n
     lengths = (torch.clamp(b_incl.long(), max=n)
                - torch.clamp(b_incl.long() - tt.long(), max=n))
@@ -699,11 +840,13 @@ def phase_backward(view) -> list:
     b4_bytes = 4 * G * n + 8 * C + 4 * G * C
     b4_bound = 1e3 * b4_bytes / H100_BYTES_PER_S
     print(f"B3 backward_tile: rows before n_contrib {sum_nc}, contributing "
-          f"pairs {contrib}; kernel {b3_ms:.4f} ms, plain {b3_plain_ms:.4f} "
-          f"ms, bound {b3_bound:.4f} ms ({b3_by}; ops {b3_bound_ops:.4f}, "
-          f"bytes {b3_bound_bytes:.4f})", flush=True)
+          f"pairs {contrib}; kernel {b3_ms:.4f} ms, plain "
+          f"{b3_plain_ms or float('nan'):.4f} ms, bound {b3_bound:.4f} ms "
+          f"({b3_by}; ops {b3_bound_ops:.4f}, bytes {b3_bound_bytes:.4f})",
+          flush=True)
     print(f"B4 rank_segment_sum: kernel {b4_ms:.4f} ms, plain "
-          f"{b4_plain_ms:.4f} ms, torch.segment_reduce {lib_ms:.4f} ms (max "
+          f"{b4_plain_ms or float('nan'):.4f} ms, torch.segment_reduce "
+          f"{lib_ms:.4f} ms (max "
           f"abs err vs plain {lib_err:.3g}), bound {b4_bound:.4f} ms (bytes, "
           f"{b4_bytes} B)", flush=True)
     return [
@@ -2169,6 +2312,649 @@ def phase_add(ply: str, cameras_extent: float, device: str = "cuda",
                 refine_ms=statistics.median(ms))
 
 
+# phase 14: reconstruction and the CLI
+RECON_W, RECON_H = 1297, 840   # a Mip-NeRF 360 training view's size
+RECON_VIEWS = 48             # two rings of 24 (garden has 185)
+RECON_POINTS = 150_000       # the order of a Mip-NeRF 360 SfM cloud
+RECON_TEST_VIEWS = 16
+# 300 steps where the reference runs 30,000, the intervals cut so that
+# densify runs twice (after steps 100 and 200), the opacity resets once
+# (after 250) and the SH degree goes up three times (75, 150, 225)
+RECON_SYSTEM = dict(max_steps=300, densify_from_step=100,
+                    densification_interval=100, opacity_reset_interval=250,
+                    oneup_sh_every=75)
+REPEAT_SYSTEM = dict(max_steps=40, densify_from_step=10,
+                     densification_interval=10, opacity_reset_interval=30,
+                     oneup_sh_every=20)
+PSNR_VIEWS = 4               # training views the exported scene is scored on
+METRIC_VIEWS = 8             # renders the metrics CLI scores
+# B2's n_contrib held against the plain version's: the kernels' view (0)
+# and three more, spread over both rings
+NC_SURVEY_VIEWS = (0, 12, 24, 36)
+CLI_STEPS = 3
+
+
+def write_recon_workspace(root: str, scene, size, n_views: int,
+                          n_points: int) -> dict:
+    """A COLMAP workspace of `n_views` PINHOLE cameras at `size` (w, h),
+    on two rings around the origin (radius 4, heights +-1.2, horizontal
+    fov 0.8): `images/` holds the port's renders of `scene` (sorted
+    route) as 8-bit PNGs written by Pillow, `sparse/0/points3D.bin` a
+    seeded subsample of the alive centres jittered by N(0, 0.01), coloured
+    by the SH DC term. Returns the times of its parts (ms)."""
+    import torch
+    from PIL import Image
+
+    from gaussianeditor_tpu_torch.core.cameras import fov2focal, lookat_c2w
+    from gaussianeditor_tpu_torch.core.sh import C0
+    from gaussianeditor_tpu_torch.data.camera_scene import CamScene
+    from gaussianeditor_tpu_torch.data.colmap import (
+        ColmapCamera,
+        ColmapImage,
+        write_colmap_model_bin,
+    )
+    from gaussianeditor_tpu_torch.ops.render import render
+
+    ms = {}
+    w, h = size
+    f = fov2focal(0.8, w)
+    cams = {1: ColmapCamera(1, "PINHOLE", w, h,
+                            np.array([f, f, w / 2, h / 2]))}
+    imgs = {}
+    per_ring = n_views // 2
+    for i in range(n_views):
+        ring, j = divmod(i, per_ring)
+        th = 2 * math.pi * (j + 0.5 * ring) / per_ring
+        eye = np.array([4.0 * math.cos(th), 1.2 if ring else -1.2,
+                        4.0 * math.sin(th)])
+        w2c = np.linalg.inv(lookat_c2w(eye, np.zeros(3), (0.0, 1.0, 0.0)))
+        imgs[i + 1] = ColmapImage(i + 1, _rotmat_to_qvec(w2c[:3, :3]),
+                                  w2c[:3, 3], 1, f"view{i:03d}.png")
+    sparse = os.path.join(root, "sparse", "0")
+    write_colmap_model_bin(sparse, cams, imgs)
+
+    t0 = time.perf_counter()
+    alive = scene.alive
+    xyz = scene.xyz.detach()[alive].cpu().numpy()
+    dc = scene.features_dc.detach()[alive][:, 0].cpu().numpy()
+    rng = np.random.RandomState(SEED)
+    idx = np.sort(rng.choice(len(xyz), n_points, replace=False))
+    pts = xyz[idx].astype(np.float64) + rng.normal(0, 0.01, (n_points, 3))
+    rgb = np.round(np.clip(0.5 + C0 * dc[idx], 0, 1) * 255).astype(np.uint8)
+    rec = np.zeros(n_points, np.dtype([
+        ("id", "<u8"), ("xyz", "<f8", 3), ("rgb", "u1", 3), ("err", "<f8"),
+        ("track", "<u8")]))
+    rec["id"] = np.arange(n_points)
+    rec["xyz"] = pts
+    rec["rgb"] = rgb
+    with open(os.path.join(sparse, "points3D.bin"), "wb") as fh:
+        fh.write(np.uint64(n_points).tobytes())
+        fh.write(rec.tobytes())
+    ms["points"] = 1e3 * (time.perf_counter() - t0)
+
+    t0 = time.perf_counter()
+    os.makedirs(os.path.join(root, "images"))
+    sc = CamScene(root, h=h, w=w, device=scene.device)
+    bg = torch.zeros(3, device=scene.device)
+    for cam, name in zip(sc.cameras, sc.image_names):
+        with torch.no_grad():
+            img = render(scene, cam, bg).color
+        u8 = (img.clamp(0, 1) * 255).to(torch.uint8).cpu().numpy()
+        Image.fromarray(u8).save(os.path.join(root, "images", name),
+                                 compress_level=1)
+    ms["images"] = 1e3 * (time.perf_counter() - t0)
+    return ms
+
+
+def ssim_flags(a, b) -> None:
+    """SSIM and its gradient on a full-size image pair under both values
+    of `torch.backends.cudnn.allow_tf32`: first the blur as a plain
+    `F.conv2d` under the process's flags computes it, against the float64
+    value on the host; then `train.losses.ssim`, which must be bitwise the
+    same under either setting and repeat bitwise."""
+    import torch
+    import torch.nn.functional as F
+
+    from gaussianeditor_tpu_torch.train import losses
+
+    def plain_ssim(x, y):
+        win = torch.as_tensor(losses._gaussian_window(11), device=x.device,
+                              dtype=x.dtype)
+
+        def blur(z):
+            hh, ww, c = z.shape
+            z = z.permute(2, 0, 1).reshape(c, 1, hh, ww)
+            z = F.conv2d(z, win.view(1, 1, -1, 1), padding=(5, 0))
+            z = F.conv2d(z, win.view(1, 1, 1, -1), padding=(0, 5))
+            return z.reshape(c, hh, ww).permute(1, 2, 0)
+
+        mu1, mu2 = blur(x), blur(y)
+        s1 = blur(x * x) - mu1 * mu1
+        s2 = blur(y * y) - mu2 * mu2
+        s12 = blur(x * y) - mu1 * mu2
+        c1, c2 = 0.01 ** 2, 0.03 ** 2
+        return torch.mean(((2 * mu1 * mu2 + c1) * (2 * s12 + c2))
+                          / ((mu1 * mu1 + mu2 * mu2 + c1) * (s1 + s2 + c2)))
+
+    def value_grad(fn, x, y):
+        x = x.clone().requires_grad_(True)
+        v = fn(x, y)
+        (g,) = torch.autograd.grad(v, x)
+        return v.detach(), g
+
+    ref_v, ref_g = value_grad(plain_ssim, a.double().cpu(), b.double().cpu())
+    saved = torch.backends.cudnn.allow_tf32
+    out = {}
+    try:
+        for tf32 in (True, False):
+            torch.backends.cudnn.allow_tf32 = tf32
+            for name, fn in (("plain F.conv2d", plain_ssim),
+                             ("losses.ssim", losses.ssim)):
+                out[name, tf32] = [value_grad(fn, a, b) for _ in range(2)]
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    for name in ("plain F.conv2d", "losses.ssim"):
+        for tf32 in (True, False):
+            (v, g), (v2, g2) = out[name, tf32]
+            dv = abs(float(v.double().cpu() - ref_v))
+            dg = float((g.double().cpu() - ref_g).abs().max())
+            print(f"SSIM via {name}, allow_tf32={tf32}: value {float(v):.9f} "
+                  f"(float64 {float(ref_v):.9f}, |diff| {dv:.3g}), gradient "
+                  f"max |diff| vs float64 {dg:.3g} (max |grad| "
+                  f"{float(ref_g.abs().max()):.3g}); repeat bitwise: "
+                  f"{torch.equal(v, v2) and torch.equal(g, g2)}", flush=True)
+        (v_on, g_on), (v_off, g_off) = out[name, True][0], out[name, False][0]
+        same = torch.equal(v_on, v_off) and torch.equal(g_on, g_off)
+        print(f"SSIM via {name}: allow_tf32 True vs False bitwise equal: "
+              f"{same}; value |diff| {abs(float(v_on - v_off)):.3g}, gradient "
+              f"max |diff| {float((g_on - g_off).abs().max()):.3g}",
+              flush=True)
+    for tf32 in (True, False):
+        (v, g), (v2, g2) = out["losses.ssim", tf32]
+        assert torch.equal(v, v2) and torch.equal(g, g2), \
+            f"losses.ssim does not repeat bitwise (allow_tf32={tf32})"
+    assert all(torch.equal(x, y) for x, y in zip(
+        out["losses.ssim", True][0], out["losses.ssim", False][0])), \
+        "losses.ssim depends on allow_tf32"
+
+
+class _Tee(io.TextIOBase):
+    """Writes to the real stdout and keeps a copy."""
+
+    def __init__(self, out):
+        self.out, self.buf = out, io.StringIO()
+
+    def write(self, s):
+        self.buf.write(s)
+        return self.out.write(s)
+
+    def flush(self):
+        self.out.flush()
+
+
+def _printed_json(text: str, prefix: str) -> dict:
+    line = [ln for ln in text.splitlines() if ln.startswith(prefix)][-1]
+    return json.loads(line[len(prefix):])
+
+
+def _trial_dir(out_dir: str) -> str:
+    trials = os.listdir(out_dir)
+    assert len(trials) == 1, f"{out_dir}: {trials}"
+    return os.path.join(out_dir, trials[0])
+
+
+def _yaml_config(path: str, cfg: dict) -> str:
+    import yaml
+
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    return path
+
+
+def run_cli(module: str, args: list, label: str, env: dict,
+            timeout: float = 300) -> str:
+    """`python -m module args` as a user starts it, from the repository
+    root; must exit 0. Returns its standard output."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", module, *args], cwd=root,
+                          env=env, capture_output=True, text=True,
+                          timeout=timeout)
+    wall = time.perf_counter() - t0
+    print(f"CLI {label}: exit {proc.returncode}, wall {wall:.2f} s",
+          flush=True)
+    if proc.returncode != 0:
+        print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
+    assert proc.returncode == 0, f"CLI {label} exited {proc.returncode}"
+    return proc.stdout
+
+
+def nc_survey(scene, cams, budget: int) -> dict:
+    """B2's n_contrib against its plain version's on every pixel of each
+    of `cams`, a differing pixel decided by `replay_nc_flips`; returns
+    the views, tile pixels and replayed pixels counted."""
+    import torch
+
+    from gaussianeditor_tpu_torch.ops.binning_sorted import sorted_bin
+    from gaussianeditor_tpu_torch.ops.render import preprocess_scene
+    from gaussianeditor_tpu_torch.ops.tile_composite import (
+        forward_tiles,
+        forward_tiles_plain,
+    )
+
+    t0 = time.perf_counter()
+    pixels = replayed = 0
+    for cam in cams:
+        gx, gy = -(-cam.width // 16), -(-cam.height // 16)
+        with torch.no_grad():
+            proc = preprocess_scene(scene, cam)
+            sb = sorted_bin(proc, gx, gy, budget)
+            assert not bool(sb.overflow)
+            ch = proc.color.shape[1]
+            tk = forward_tiles(sb, gx, ch)
+            tp = forward_tiles_plain(sb.tile_bounds, sb.payload, gx, ch)[0]
+        n, unexplained = replay_nc_flips(sb, tk, tp, gx,
+                                         f"recon survey view {cam.width}x"
+                                         f"{cam.height}")
+        assert unexplained == 0, \
+            f"B2 recon survey: n_contrib differs on {unexplained} pixels"
+        pixels += gx * gy * 256
+        replayed += n
+    print(f"B2 n_contrib over {len(cams)} more recon views: {replayed} of "
+          f"{pixels} tile pixels differ from the plain version, each decided"
+          f" by the replay; {time.perf_counter() - t0:.1f} s", flush=True)
+    return dict(views=len(cams), pixels=pixels, replayed=replayed)
+
+
+def recon_view_kernels(scene, cams, cap: int) -> dict:
+    """B1-B4 against their plain versions at the first view of `cams`,
+    as phases 3 and 6 hold them, and B2's n_contrib at the others
+    (`nc_survey`); returns each kernel's time, bound and error at the
+    first view, and B2's replayed pixels over all of them."""
+    import torch
+
+    from gaussianeditor_tpu_torch.ops.render import (
+        default_max_instances,
+        preprocess_scene,
+    )
+
+    cam = cams[0]
+    w, h = cam.width, cam.height
+    gx, gy = -(-w // 16), -(-h // 16)
+    budget = default_max_instances(cap)
+    with torch.no_grad():
+        proc = preprocess_scene(scene, cam)
+    kv = check_kernels(proc, gx, gy, budget, f"recon view {w}x{h}", False,
+                       replay_flips=True)
+    view = dict(proc=proc, sb=kv["sb"], tiles=kv["tiles"],
+                contrib=kv["contrib"], gx=gx, gy=gy, budget=budget)
+    kv_replayed = kv["nc_replayed"]
+    rows_bw = phase_backward(view, time_plain=False)
+    out = {
+        "B1 binning_key": dict(ms=kv["b1_ms"], bound_ms=kv["b1_bound"],
+                               bound_by="bytes", max_abs_err=kv["b1_err"]),
+        "B2 forward_tile": dict(ms=kv["b2_ms"], bound_ms=kv["b2_bound"],
+                                bound_by=kv["b2_by"],
+                                max_abs_err=kv["b2_err"]),
+        **{r["name"]: {k2: r[k2] for k2 in ("ms", "bound_ms", "bound_by",
+                                           "max_abs_err")}
+           for r in rows_bw}}
+    for v in out.values():
+        v.update(tiles=gx * gy, ranks=int(kv["sb"].payload.shape[1]))
+    del view, kv, proc
+    survey = nc_survey(scene, cams[1:], budget)
+    out["B2 forward_tile"]["nc_replayed"] = dict(
+        views=1 + survey["views"], pixels=gx * gy * 256 + survey["pixels"],
+        replayed=kv_replayed + survey["replayed"])
+    return out
+
+
+def phase_recon(ply: str, colmap: str, tmp: str, device: str = "cuda",
+                size=(RECON_W, RECON_H), n_views: int = RECON_VIEWS,
+                n_points: int = RECON_POINTS, system: dict = RECON_SYSTEM,
+                repeat_system: dict = REPEAT_SYSTEM,
+                test_views: int = RECON_TEST_VIEWS,
+                cli_size: int = SIZE) -> dict:
+    """Phase 14: reconstruction through `launch.main` at full width, the
+    kernels at its view, a bitwise repeat, and the CLI's other modes as
+    subprocesses (see the module docstring). Returns the launch counts of
+    each part and B1-B4's numbers at the reconstruction's view."""
+    import torch
+
+    from gaussianeditor_tpu_torch.apps import launch
+    from gaussianeditor_tpu_torch.data.camera_scene import CamScene
+    from gaussianeditor_tpu_torch.models.gaussians import GaussianScene
+    from gaussianeditor_tpu_torch.models.ply import load_ply
+    from gaussianeditor_tpu_torch.ops import _kernels
+    from gaussianeditor_tpu_torch.ops.render import render
+    from gaussianeditor_tpu_torch.train.losses import psnr
+    from gaussianeditor_tpu_torch.train.recon import ReconConfig, ReconTrainer
+
+    dev = torch.device(device)
+    w, h = size
+    steps = system["max_steps"]
+    out = {}
+
+    # --- the workspace, from the bench scene ---
+    t0 = time.perf_counter()
+    bench = load_ply(ply, device=dev)
+    ws = os.path.join(tmp, "recon_ws")
+    parts = write_recon_workspace(ws, bench, size, n_views, n_points)
+    del bench
+    print(f"recon workspace: {n_views} views at {w}x{h}, {n_points} SfM "
+          f"points; {1e3 * (time.perf_counter() - t0):.1f} ms (points "
+          f"{parts['points']:.1f}, {n_views} renders and PNG writes "
+          f"{parts['images']:.1f})", flush=True)
+    sc = CamScene(ws, h=h, w=w, device=dev)
+    host_images = launch._load_posed_images(os.path.join(ws, "images"), sc)
+    targets = [torch.from_numpy(im).to(dev) for im in host_images]
+
+    # --- SSIM under both TF32 settings, on two of the targets ---
+    ssim_flags(targets[0], targets[1])
+
+    # --- recon through the CLI's entry point, in this process ---
+    cap = 4 * n_points
+    cfg = dict(mode="recon", colmap_dir=ws, height=h, width=w,
+               capacity_multiplier=4, sh_degree=SH_DEGREE, device=device,
+               test_views=test_views, output_dir=os.path.join(tmp, "recon"),
+               system=dict(system))
+    cfg_path = _yaml_config(os.path.join(tmp, "recon.yaml"), cfg)
+    stamps = []
+
+    class TimedLogger(launch.MetricsLogger):
+        def __call__(self, step, metrics):
+            super().__call__(step, metrics)   # reads the loss: a sync
+            stamps.append(time.perf_counter())
+
+    turntable_counts = {}
+    turntable = launch._turntable
+
+    def counted_turntable(*a, **k):
+        before = _kernels.launch_counts()
+        try:
+            return turntable(*a, **k)
+        finally:
+            after = _kernels.launch_counts()
+            turntable_counts.update({n: after[n] - before[n] for n in after})
+
+    tee = _Tee(sys.stdout)
+    launch.MetricsLogger, launch._turntable = TimedLogger, counted_turntable
+    # the CLI sees what a user's process sees: torch's default TF32 flags
+    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launch_counts()
+    try:
+        with contextlib.redirect_stdout(tee):
+            launch.main(["--config", cfg_path, "--train", "--test",
+                         "--export"])
+    finally:
+        launch.MetricsLogger, launch._turntable = TimedLogger.__base__, turntable
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    counts = _kernels.launch_counts()
+    peak = (torch.cuda.max_memory_allocated() / 2 ** 30
+            if dev.type == "cuda" else float("nan"))
+    timings = _printed_json(tee.buf.getvalue(), "timings: ")
+    assert _printed_json(tee.buf.getvalue(), "launches: ") == counts
+    out["recon_test"] = turntable_counts
+    out["recon_steps"] = {k: counts[k] - turntable_counts[k] for k in counts}
+    assert_launches(out["recon_steps"], dict(
+        binning_key=steps, forward_tile=steps, backward_tile=steps,
+        rank_segment_sum=steps), "recon steps")
+    assert_launches(turntable_counts, dict(
+        binning_key=test_views, forward_tile=test_views), "recon turntable")
+    trial = _trial_dir(cfg["output_dir"])
+
+    # --- what the run left ---
+    with open(os.path.join(trial, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    assert [r["step"] for r in rows] == list(range(steps)), "metrics rows"
+    loss = np.array([r["loss"] for r in rows])
+    assert np.isfinite(loss).all(), "recon: a loss is not finite"
+    k = min(20, steps // 2)
+    print(f"recon loss: first {k} mean {loss[:k].mean():.6f}, last {k} mean "
+          f"{loss[-k:].mean():.6f}", flush=True)
+    assert loss[-k:].mean() < loss[:k].mean(), "recon: the loss did not fall"
+    for r in rows:
+        if "n_split" in r:
+            grants = int(r["n_cloned"] + r["n_split"])
+            print(f"densify after step {r['step']}: requests "
+                  f"{grants + int(r['n_dropped'])}, granted {grants} "
+                  f"(cloned {int(r['n_cloned'])}, split {int(r['n_split'])},"
+                  f" dropped {int(r['n_dropped'])}), pruned "
+                  f"{int(r['n_pruned'])}", flush=True)
+    assert sum("n_split" in r for r in rows) == len(
+        [s for s in range(steps)
+         if s >= system["densify_from_step"] and s > 0
+         and s % system["densification_interval"] == 0]), "densify steps"
+    final = load_ply(os.path.join(trial, "last.ply"), capacity=cap,
+                     device=dev)
+    n_final = int(final.n_alive)
+    print(f"last.ply: {n_final} alive Gaussians (from {n_points} SfM "
+          f"points, {cap} slots), SH degree {final.max_sh_degree}",
+          flush=True)
+    assert n_final != n_points, "densify and prune changed nothing"
+    assert final.max_sh_degree == SH_DEGREE, "last.ply lost its SH degree"
+    turn = [f for f in os.listdir(trial) if f.startswith("turntable")]
+    assert len(turn) == 1, f"turntable files: {turn}"
+    if turn[0].endswith(".gif"):
+        from PIL import Image
+
+        with Image.open(os.path.join(trial, turn[0])) as im:
+            n_frames = im.n_frames
+    else:
+        n_frames = int(subprocess.run(
+            ["ffprobe", "-v", "error", "-count_frames", "-select_streams",
+             "v:0", "-show_entries", "stream=nb_read_frames", "-of",
+             "csv=p=0", os.path.join(trial, turn[0])],
+            capture_output=True, text=True, check=True).stdout)
+    assert n_frames == test_views, f"turntable holds {n_frames} frames"
+
+    # step times by kind: the logger's clock after each step's loss read
+    first_ms = timings["train"] - 1e3 * (stamps[-1] - stamps[0])
+    dt = {s: 1e3 * (stamps[s] - stamps[s - 1]) for s in range(1, steps)}
+
+    def every(key, s):
+        return system[key] > 0 and s % system[key] == 0
+
+    def kind(s):
+        if every("oneup_sh_every", s):
+            return "SH one-up"
+        if s >= system["densify_from_step"] and every(
+                "densification_interval", s):
+            return "densify"
+        if every("opacity_reset_interval", s):
+            return "opacity reset"
+        return "plain"
+
+    by_kind = {}
+    for s, v in dt.items():
+        by_kind.setdefault(kind(s), []).append(v)
+    print(f"recon set-up (ms): CamScene {timings['cameras']:.1f}, image "
+          f"load {timings['images']:.1f}, from_points (points3D read, "
+          f"native KNN, upload) {timings['scene']:.1f}, trainer init "
+          f"{timings['system']:.1f}", flush=True)
+    print(f"recon steps ({steps}, {w}x{h}): first {first_ms:.2f} ms; "
+          + "; ".join(f"{kd} median {statistics.median(v):.2f} ms "
+                      f"(n={len(v)}, min {min(v):.2f}, max {max(v):.2f})"
+                      for kd, v in by_kind.items())
+          + f"; fit {timings['train']:.1f} ms; peak device memory "
+          f"{peak:.2f} GiB", flush=True)
+    print(f"recon turntable: {test_views} renders {timings['test_render']:.1f}"
+          f" ms, write ({turn[0]}) {timings['test_write']:.1f} ms; export "
+          f"(last.ply) {timings['export']:.1f} ms", flush=True)
+    out["plain_step_ms"] = statistics.median(by_kind["plain"])
+
+    # --- PSNR on training views: the exported scene against the initial ---
+    t0 = time.perf_counter()
+    xyz, rgb = sc.load_points()
+    init = GaussianScene.from_points(xyz, rgb, max_sh_degree=SH_DEGREE,
+                                     capacity=cap, device=dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    print(f"from_points on {len(xyz)} points (native KNN, upload): "
+          f"{1e3 * (time.perf_counter() - t0):.1f} ms", flush=True)
+    bg = torch.zeros(3, device=dev)
+
+    def mean_psnr(scene):
+        with torch.no_grad():
+            return float(np.mean([float(psnr(render(scene, sc.cameras[i],
+                                                    bg).color, targets[i]))
+                                  for i in range(PSNR_VIEWS)]))
+
+    p0, p1 = mean_psnr(init), mean_psnr(final)
+    print(f"PSNR over {PSNR_VIEWS} training views: initial {p0:.3f} dB, "
+          f"exported {p1:.3f} dB", flush=True)
+    assert p1 > p0, "recon: the exported scene is no closer to the targets"
+
+    # --- one plain step profiled, on the exported scene ---
+    rcfg = ReconConfig(**dict(system, cameras_extent=sc.cameras_extent,
+                              max_steps=steps, densify_from_step=10 ** 9,
+                              opacity_reset_interval=0, oneup_sh_every=0))
+    tr = ReconTrainer(final, sc.cameras, host_images, rcfg)
+    tr.fit(n_steps=2)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        profile_once(lambda: tr.fit(n_steps=1),
+                     f"one plain recon step ({w}x{h}, {n_final} alive of "
+                     f"{cap} slots)")
+    del tr, final
+
+    # --- a bitwise repeat of a short fit through every event ---
+    rep = ReconConfig(**dict(repeat_system,
+                             cameras_extent=sc.cameras_extent))
+
+    def run_repeat():
+        tr = ReconTrainer(init, sc.cameras, host_images, rep)
+        tr.fit()
+        return tr.scene
+
+    a, b = run_repeat(), run_repeat()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    for name, v in a.named_parameters():
+        assert torch.equal(v, getattr(b, name)), f"repeat: {name} differs"
+    assert torch.equal(a.alive, b.alive), "repeat: alive differs"
+    print(f"recon repeat: {rep.max_steps} steps twice from {n_points} "
+          f"points (densify at {rep.densify_from_step}, every "
+          f"{rep.densification_interval}; opacity reset "
+          f"{rep.opacity_reset_interval}; SH one-up every "
+          f"{rep.oneup_sh_every}): every parameter and the alive mask "
+          f"bitwise equal ({int(a.n_alive)} alive)", flush=True)
+    del a, b, init, targets
+
+    # --- the CLI as users start it ---
+    out["cli_modes"] = dict.fromkeys(counts, 0)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    cli_modes(ply, colmap, tmp, ws, sc, device, cli_size, out["cli_modes"])
+
+    # --- each kernel against its plain version at one view, B2's
+    # n_contrib at four (the card) ---
+    out["recon_view"] = {}
+    if dev.type == "cuda":
+        final = load_ply(os.path.join(trial, "last.ply"), capacity=cap,
+                         device=dev)
+        out["recon_view"] = recon_view_kernels(
+            final, [sc.cameras[i] for i in NC_SURVEY_VIEWS], cap)
+    return out
+
+
+def cli_modes(ply: str, colmap: str, tmp: str, ws: str, sc, device: str,
+              cli_size: int, launches_sum: dict) -> None:
+    """Phase 14's subprocesses: the CLI's edit, del and add modes on the
+    PLY, then the metrics CLI on renders of the reconstruction (in
+    `tmp/recon`) against their targets in the workspace `ws`; adds each
+    mode's kernel launches to `launches_sum`."""
+    import torch
+    from PIL import Image
+
+    from gaussianeditor_tpu_torch.models.ply import load_ply, ply_vertex_count
+    from gaussianeditor_tpu_torch.ops.render import render
+    from gaussianeditor_tpu_torch.train.lpips import random_weights, save_weights
+
+    dev = torch.device(device)
+    root = os.path.dirname(os.path.abspath(__file__))
+    lp_path = os.path.join(tmp, "lpips_random.npz")
+    save_weights(lp_path, random_weights(0))
+    env = dict(os.environ, PYTHONPATH=root, GSEDIT_LPIPS_WEIGHTS=lp_path)
+    n_ply = ply_vertex_count(ply)
+    base = dict(gs_source=ply, colmap_dir=colmap, height=cli_size,
+                width=cli_size, device=device, n_val_views=2)
+    bbox = [int(v * cli_size // SIZE) for v in ADD_BBOX]
+    modes = {
+        "edit": (dict(mode="edit", guidance="fake", system=dict(
+            prompt=EDIT_PROMPT, batch_size=2, max_steps=EDIT_STEPS,
+            densify_until_step=0)),
+            ["--train", "--validate", "--export",
+             f"system.max_steps={CLI_STEPS}"]),
+        "del": (dict(mode="del", segmentor="fake", inpainter="fake",
+                     system=dict(seg_prompt="the bear", batch_size=2,
+                                 max_steps=CLI_STEPS, densify_until_step=0)),
+                ["--train", "--export"]),
+        "add": (dict(mode="add", inpainter="fake", system=dict(
+            inpaint_prompt="a teddy bear", bbox=bbox, batch_size=2,
+            densify_until_step=0)),
+            ["--train", f"system.refine_steps={CLI_STEPS}"]),
+    }
+    for mode, (extra, args) in modes.items():
+        cfg = dict(base, output_dir=os.path.join(tmp, "cli_" + mode), **extra)
+        path = _yaml_config(os.path.join(tmp, f"cli_{mode}.yaml"), cfg)
+        stdout = run_cli("gaussianeditor_tpu_torch.apps.launch",
+                         ["--config", path, *args], mode, env)
+        launches = _printed_json(stdout, "launches: ")
+        for name in launches_sum:
+            launches_sum[name] += launches[name]
+        assert_launches({k2: launches[k2] for k2 in (
+            "backward_tile", "forward_chunk", "backward_chunk")},
+            dict(backward_tile=2 * CLI_STEPS), f"CLI {mode}")
+        trial = _trial_dir(cfg["output_dir"])
+        want = ["parsed.yaml", "cmd.txt", "code.zip", "metrics.jsonl"]
+        want += {"edit": ["last.ply", "validation/metrics.json"],
+                 "del": ["last.ply"], "add": ["merged.ply", "last.ply"]}[mode]
+        for f in want:
+            assert os.path.exists(os.path.join(trial, f)), f"{mode}: {f}"
+        with open(os.path.join(trial, "metrics.jsonl")) as f:
+            assert len(f.readlines()) == CLI_STEPS, f"{mode}: metrics rows"
+        if mode == "edit":
+            with open(os.path.join(trial, "validation", "metrics.json")) as f:
+                val = json.load(f)
+            assert all(np.isfinite(val[k2]) for k2 in ("psnr", "ssim",
+                                                       "lpips")), val
+            print(f"CLI edit validation: {val}", flush=True)
+        n_alive = ply_vertex_count(os.path.join(
+            trial, "merged.ply" if mode == "add" else "last.ply"))
+        print(f"CLI {mode}: {n_alive} Gaussians written (from {n_ply}); "
+              f"launches {launches}", flush=True)
+
+    # the metrics CLI on renders of the reconstruction against targets
+    bg = torch.zeros(3, device=dev)
+    final = load_ply(os.path.join(_trial_dir(os.path.join(tmp, "recon")),
+                                  "last.ply"), device=dev)
+    rdir = os.path.join(tmp, "recon_renders")
+    os.makedirs(rdir)
+    n_metric = min(METRIC_VIEWS, len(sc.cameras))
+    for i in range(n_metric):
+        with torch.no_grad():
+            img = render(final, sc.cameras[i], bg).color
+        Image.fromarray((img.clamp(0, 1) * 255).to(torch.uint8).cpu()
+                        .numpy()).save(os.path.join(rdir, sc.image_names[i]))
+    del final
+    m_path = os.path.join(tmp, "recon_metrics.json")
+    run_cli("gaussianeditor_tpu_torch.train.metrics",
+            [rdir, os.path.join(ws, "images"), "--out", m_path, "--device",
+             device], "metrics", env)
+    with open(m_path) as f:
+        m = json.load(f)
+    assert m["n_images"] == n_metric and all(
+        np.isfinite(m[k2]) for k2 in ("psnr", "ssim", "lpips")), m
+    print(f"metrics CLI on {n_metric} renders of the reconstruction: {m}",
+          flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -2281,6 +3067,11 @@ def main() -> int:
         ad = phase_add(ply, extent)
         b4["ms_by_route"]["add"] = ad["b4_add_ms"]
         walls["13"] = time.perf_counter() - t_start - sum(walls.values())
+        torch.cuda.empty_cache()
+
+        # 14. reconstruction at full width and the CLI
+        rc = phase_recon(ply, os.path.join(tmp, "colmap"), tmp)
+        walls["14"] = time.perf_counter() - t_start - sum(walls.values())
 
     # launches on each kernel's own path: B1 and B2 serve frames (phase
     # 4), B3 and B4 train (phase 7), B5 and B6 train on the dense route
@@ -2306,7 +3097,12 @@ def main() -> int:
                                  "del_steps": dl["steps"][key],
                                  "add": ad["add"][key],
                                  "add_refine": ad["add_refine"][key],
-                                 "mesh_fit": ad["mesh_fit"][key]}
+                                 "mesh_fit": ad["mesh_fit"][key],
+                                 "recon_steps": rc["recon_steps"][key],
+                                 "recon_test": rc["recon_test"][key],
+                                 "cli_modes": rc["cli_modes"][key]}
+        if k["name"] in rc["recon_view"]:
+            k["recon_view"] = rc["recon_view"][k["name"]]
     print("wall time by phase (s): " + ", ".join(
         f"{k} {v:.1f}" for k, v in walls.items())
         + f"; total {time.perf_counter() - t_start:.1f} s", flush=True)

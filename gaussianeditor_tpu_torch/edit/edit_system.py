@@ -18,8 +18,7 @@ What differs from the JAX system:
     key, `resume` does not restore it. `fit(densify_noise=...)` injects
     the draws instead (tests hand both packages JAX's numbers).
   * One loop. `dispatch_burst > 1` (the JAX package's device-program
-    bursts) runs the per-step loop, with a warning; `compute_clip` comes
-    with the CLIP slice.
+    bursts) runs the per-step loop, with a warning.
   * Host traffic per step: the target upload, the train step's
     `num_rendered` reads, and one device-to-host copy for each view whose
     target is refreshed. The overflow flag is read once, after the loop.
@@ -57,6 +56,7 @@ from gaussianeditor_tpu_torch.train.trainer import (
     init_train_state,
     make_densify_step,
     make_train_step,
+    upload_images,
 )
 
 _WEIGHT_FIELDS = ("lambda_l1", "lambda_p", "lambda_anchor_color",
@@ -71,7 +71,7 @@ class EditConfig:
 
     prompt: str = ""
     seg_prompt: str = ""            # empty -> no semantic tracing
-    # CLIP directional-eval prompts (compute_clip, not ported yet)
+    # CLIP directional-eval prompts (compute_clip)
     clip_prompt_origin: str = ""
     clip_prompt_target: str = ""
     local_edit: bool = False        # train/render only the masked region
@@ -169,16 +169,6 @@ class ViewSampler:
                                for i in self.rng.permutation(self.n)]
             out.append(int(self._stack.pop()))
         return out
-
-
-def _upload(images: np.ndarray, device: torch.device) -> torch.Tensor:
-    """Host images onto `device`; onto a card from pinned memory without
-    waiting for the device (the caching host allocator keeps the pinned
-    buffer until the copy has run)."""
-    t = torch.from_numpy(images)
-    if device.type == "cuda":
-        return t.pin_memory().to(device, non_blocking=True)
-    return t.to(device)
 
 
 class EditSystem:
@@ -347,6 +337,31 @@ class EditSystem:
             self.update_mask()
         self.state = init_train_state(copy.deepcopy(self.scene), self.optim)
 
+    def compute_clip(self, embedder=None) -> Dict[str, float]:
+        """CLIP directional similarity between the origin renders and the
+        current renders over all views (`utils/clip_metrics.py`).
+        `embedder` defaults to the openai-CLIP embedder on the scene's
+        device; any `ClipEmbedder` works (tests pass a fake)."""
+        from gaussianeditor_tpu_torch.utils.clip_metrics import (
+            TorchClipSimilarity,
+            compute_clip_directional,
+        )
+
+        assert self.cfg.clip_prompt_origin and self.cfg.clip_prompt_target, (
+            "set clip_prompt_origin and clip_prompt_target"
+        )
+        if embedder is None:
+            embedder = TorchClipSimilarity(device=self.scene.device)
+        self.render_all_views()
+        scene = self.state.scene if self.state is not None else self.scene
+        edited = [self._render_cache(scene, cam).cpu().numpy()
+                  for cam in self.cameras]
+        origin = [self.origin_frames[i] for i in range(len(self.cameras))]
+        return compute_clip_directional(
+            embedder, origin, edited,
+            self.cfg.clip_prompt_origin, self.cfg.clip_prompt_target,
+        )
+
     # --- per-step target refresh ---
 
     def _drain_guidance_futures(self) -> None:
@@ -440,7 +455,8 @@ class EditSystem:
                     renders, origins, tgt, src,
                 )
                 g = g + lam * np.asarray(gi, np.float32)
-        return _upload(np.asarray(g, np.float32), self.state.scene.device)
+        return upload_images(np.asarray(g, np.float32),
+                             self.state.scene.device)
 
     # --- training ---
 
@@ -475,7 +491,7 @@ class EditSystem:
             bs = self._apply_resolution(step)
             view_ids = self.sampler.sample(bs)
             self._refresh_targets(view_ids, step)
-            targets = _upload(
+            targets = upload_images(
                 np.stack([self.edit_frames[v] for v in view_ids]),
                 self.state.scene.device)
             w = self.cfg.loss

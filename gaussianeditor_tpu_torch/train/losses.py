@@ -4,6 +4,13 @@ Counterpart of `gaussianeditor_tpu/train/losses.py` (L1, the 11x11
 Gaussian-window SSIM with C1 = 0.01^2, C2 = 0.03^2, PSNR). Images are
 channels-last, [..., H, W, C]. The SSIM map's halo-row mode (`rows=
 "VALID"`, for the JAX package's tile-sharded path) is not ported.
+
+SSIM's blurs are `F.conv2d`, run forward and backward in full float32
+with cuDNN's deterministic algorithms whatever the process-wide cuDNN
+flags say (`exact_conv_flags`, `_Blur`): a plain call reads those flags
+(PyTorch's default `torch.backends.cudnn.allow_tf32` is True), which
+would let cuDNN choose a TF32 or a nondeterministic algorithm, so SSIM
+and its gradient would hang on a global switch.
 """
 
 from __future__ import annotations
@@ -29,9 +36,40 @@ def psnr(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     return 20.0 * torch.log10(1.0 / torch.sqrt(torch.clamp_min(mse, 1e-12)))
 
 
+def exact_conv_flags():
+    """cuDNN flags for a convolution that is full float32 and repeats
+    bitwise: TF32 off, deterministic algorithms, no autotuning. The flags
+    are read when a convolution runs, so a backward needs them too."""
+    return torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                      deterministic=True, allow_tf32=False)
+
+
 def _gaussian_window(size: int = 11, sigma: float = 1.5) -> np.ndarray:
     g = np.exp(-((np.arange(size) - size // 2) ** 2) / (2 * sigma ** 2))
     return (g / g.sum()).astype(np.float32)
+
+
+class _Blur(torch.autograd.Function):
+    """The separable Gaussian blur of [N, 1, H, W] with zero padding
+    ("SAME"), forward and backward under `exact_conv_flags`. The window
+    is symmetric, so the backward is the same blur of the cotangent."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(w)
+        return _blur2d(x, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        (w,) = ctx.saved_tensors
+        return _blur2d(g.contiguous(), w), None
+
+
+def _blur2d(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    pad = w.shape[0] // 2
+    with exact_conv_flags():
+        x = F.conv2d(x, w.view(1, 1, -1, 1), padding=(pad, 0))
+        return F.conv2d(x, w.view(1, 1, 1, -1), padding=(0, pad))
 
 
 def ssim_map(img1: torch.Tensor, img2: torch.Tensor,
@@ -40,14 +78,13 @@ def ssim_map(img1: torch.Tensor, img2: torch.Tensor,
     Gaussian window, zero padding ("SAME")."""
     if img1.dim() == 3:
         img1, img2 = img1[None], img2[None]
-    w = torch.as_tensor(_gaussian_window(window_size), device=img1.device)
-    pad = window_size // 2
+    w = torch.as_tensor(_gaussian_window(window_size), device=img1.device,
+                        dtype=img1.dtype)
 
     def blur(x):
         b, h, wd, c = x.shape
         x = x.permute(0, 3, 1, 2).reshape(b * c, 1, h, wd)
-        x = F.conv2d(x, w.view(1, 1, -1, 1), padding=(pad, 0))
-        x = F.conv2d(x, w.view(1, 1, 1, -1), padding=(0, pad))
+        x = _Blur.apply(x, w)
         return x.reshape(b, c, h, wd).permute(0, 2, 3, 1)
 
     mu1, mu2 = blur(img1), blur(img2)

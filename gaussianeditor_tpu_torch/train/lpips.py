@@ -14,10 +14,11 @@ The convolutions are `F.conv2d`, as the JAX package computes them with
 `lax.conv_general_dilated` outside any Pallas kernel. Precision and
 determinism: every convolution, forward and backward, runs in full
 float32 (TF32 off) with cuDNN's deterministic algorithms, whatever the
-process-wide cuDNN flags say, so that a train step with LPIPS repeats
-bitwise on the card. The backward is taken explicitly (`_Conv`) because
-cuDNN reads its flags when the backward runs; it returns the gradient of
-the input only (the weights are constants).
+process-wide cuDNN flags say (`losses.exact_conv_flags`, as SSIM's
+blurs), so that a train step with LPIPS repeats bitwise on the card. The
+backward is taken explicitly (`_Conv`) because cuDNN reads its flags
+when the backward runs; it returns the gradient of the input only (the
+weights are constants).
 """
 
 from __future__ import annotations
@@ -28,6 +29,8 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from gaussianeditor_tpu_torch.train.losses import exact_conv_flags
 
 # VGG16 `features` conv plan: (out_channels, pool_before) per conv layer
 # (torchvision cfg "D": 64,64,M,128,128,M,256,256,256,M,512,512,512,M,
@@ -131,11 +134,6 @@ def torch_weights(weights: Dict[str, np.ndarray], device
     return out
 
 
-def _exact_flags():
-    return torch.backends.cudnn.flags(enabled=True, benchmark=False,
-                                      deterministic=True, allow_tf32=False)
-
-
 class _Conv(torch.autograd.Function):
     """3x3 'SAME' convolution whose forward and backward both run under
     the deterministic, full-float32 cuDNN flags."""
@@ -144,13 +142,13 @@ class _Conv(torch.autograd.Function):
     def forward(ctx, x, w, b):
         ctx.save_for_backward(w)
         ctx.x_shape = x.shape
-        with _exact_flags():
+        with exact_conv_flags():
             return F.conv2d(x, w, b, padding=1)
 
     @staticmethod
     def backward(ctx, g):
         (w,) = ctx.saved_tensors
-        with _exact_flags():
+        with exact_conv_flags():
             gx = torch.nn.grad.conv2d_input(ctx.x_shape, w, g, padding=1)
         return gx, None, None
 

@@ -23,6 +23,7 @@ import copy
 import dataclasses
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from gaussianeditor_tpu_torch.core.cameras import Camera
@@ -74,6 +75,20 @@ def init_train_state(scene: GaussianScene, optim: GaussianAdam) -> TrainState:
                       step=0)
 
 
+def upload_images(images: np.ndarray, device: torch.device) -> torch.Tensor:
+    """Host images onto `device`; onto a card from pinned memory without
+    waiting for the device (the caching host allocator keeps the pinned
+    buffer until the copy has run)."""
+    t = torch.from_numpy(images)
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
+_ANCHOR_WEIGHTS = ("lambda_anchor_color", "lambda_anchor_geo",
+                   "lambda_anchor_scale", "lambda_anchor_opacity")
+
+
 def make_train_step(optim: GaussianAdam, weights: LossWeights, *,
                     perceptual: Optional[Callable] = None,
                     local_edit: bool = False, with_inject: bool = False,
@@ -88,6 +103,8 @@ def make_train_step(optim: GaussianAdam, weights: LossWeights, *,
     precomputed score-distillation image gradient, already weighted; the
     step adds sum(render * inject_grad) to the loss, so its gradient
     flows into the parameters. impl: the render route (`render`'s `impl`).
+    When the four anchor weights of a call are all 0 (reconstruction, the
+    mesh fit), the step skips the anchor terms and their metrics.
     grads: when a dict is passed, it receives the step's parameter
     gradients (before the mask)."""
 
@@ -126,15 +143,14 @@ def make_train_step(optim: GaussianAdam, weights: LossWeights, *,
         loss_p = torch.mean(torch.stack(lps)) if lps else zero
         loss_inject = torch.sum(torch.stack(injs)) if injs else zero
 
-        anchors = anchor_loss(s)
-        total = (weights.lambda_l1 * loss_l1
-                 + weights.lambda_p * loss_p
-                 + weights.lambda_anchor_color * anchors["loss_anchor_color"]
-                 + weights.lambda_anchor_geo * anchors["loss_anchor_geo"]
-                 + weights.lambda_anchor_scale * anchors["loss_anchor_scale"]
-                 + weights.lambda_anchor_opacity
-                 * anchors["loss_anchor_opacity"]
-                 + loss_inject)
+        total = weights.lambda_l1 * loss_l1 + weights.lambda_p * loss_p
+        anchors = {}
+        if any(getattr(weights, f) != 0.0 for f in _ANCHOR_WEIGHTS):
+            anchors = anchor_loss(s)
+            for f in _ANCHOR_WEIGHTS:
+                total = total + getattr(weights, f) * anchors[
+                    "loss_" + f[len("lambda_"):]]
+        total = total + loss_inject
         *g_params, g_off = torch.autograd.grad(total, params + [offsets])
         g = dict(zip(PARAM_NAMES, g_params))
         if grads is not None:

@@ -43,7 +43,14 @@ from gaussianeditor_tpu_torch.native import knn_sq_dists_native
 from gaussianeditor_tpu_torch.ops import knn
 from tests.helpers import make_camera, random_scene
 from tests.test_add_externals import CUBE_OBJ
-from tests.torch_port_helpers import PARAMS, port_camera, port_scene
+from tests.torch_port_helpers import (  # noqa: F401
+    PARAMS,
+    one_torch_thread,
+    port_camera,
+    port_scene,
+)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 jrender_mod = importlib.import_module("gaussianeditor_tpu.ops.render")
 jtrainer_mod = importlib.import_module("gaussianeditor_tpu.train.trainer")

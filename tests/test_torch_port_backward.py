@@ -23,7 +23,13 @@ from gaussianeditor_tpu_torch.ops.binning_sorted import rank_segment_sum
 from gaussianeditor_tpu_torch.ops.preprocess import preprocess
 from gaussianeditor_tpu_torch.ops.render import render
 from tests.helpers import make_camera, random_scene
-from tests.torch_port_helpers import port_camera, port_scene
+from tests.torch_port_helpers import (  # noqa: F401
+    one_torch_thread,
+    port_camera,
+    port_scene,
+)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 GRAD_TOL = dict(atol=1e-3, rtol=1e-2)   # tests/test_pallas.py:87
 DIFF_PARAMS = ("xyz", "features_dc", "features_rest", "opacity_raw",

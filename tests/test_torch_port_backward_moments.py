@@ -34,7 +34,13 @@ from gaussianeditor_tpu_torch.ops.tile_composite import (
 )
 from gaussianeditor_tpu_torch.testing import adversarial_rows
 from tests.helpers import make_camera, random_scene
-from tests.torch_port_helpers import port_camera, port_scene
+from tests.torch_port_helpers import (  # noqa: F401
+    one_torch_thread,
+    port_camera,
+    port_scene,
+)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 ROWS = 32          # composite_backward.cuh kRows
 WARPS = PX // 32

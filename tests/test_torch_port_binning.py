@@ -19,7 +19,9 @@ from gaussianeditor_tpu_torch.ops.binning_sorted import (
     sorted_bin,
 )
 from tests.helpers import make_camera, random_scene
-from tests.torch_port_helpers import port_proc
+from tests.torch_port_helpers import one_torch_thread, port_proc  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 @functools.lru_cache(maxsize=None)

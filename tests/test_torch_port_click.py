@@ -42,7 +42,13 @@ from gaussianeditor_tpu_torch.testing import assert_images_close
 from gaussianeditor_tpu_torch.utils import camera_math, masks
 from tests.helpers import make_camera, random_scene
 from tests.test_edit import _two_cluster_scene
-from tests.torch_port_helpers import port_camera, port_scene
+from tests.torch_port_helpers import (  # noqa: F401
+    one_torch_thread,
+    port_camera,
+    port_scene,
+)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 jrender_mod = importlib.import_module("gaussianeditor_tpu.ops.render")
 

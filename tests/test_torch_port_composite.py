@@ -22,7 +22,9 @@ from gaussianeditor_tpu_torch.ops.tile_composite import (
 )
 from gaussianeditor_tpu_torch.testing import assert_images_close
 from tests.helpers import make_camera, random_scene
-from tests.torch_port_helpers import port_proc
+from tests.torch_port_helpers import one_torch_thread, port_proc  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 MAX_INSTANCES = 8192
 

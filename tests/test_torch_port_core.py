@@ -12,7 +12,12 @@ from gaussianeditor_tpu.core.transforms import quat_normalize as jquat_normalize
 from gaussianeditor_tpu_torch.core import cameras as tcam
 from gaussianeditor_tpu_torch.core import sh as tsh
 from gaussianeditor_tpu_torch.core.transforms import quat_normalize
-from tests.torch_port_helpers import assert_camera_equal as _assert_camera_equal
+from tests.torch_port_helpers import (  # noqa: F401
+    assert_camera_equal as _assert_camera_equal,
+    one_torch_thread,
+)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def test_lookat_camera_matches():

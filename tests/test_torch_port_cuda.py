@@ -760,3 +760,195 @@ def test_del_and_add_systems_repeat_bitwise(cuda):
     assert b.state.scene.capacity == 6000 + 500
     for k, v in scene.state_dict().items():
         assert torch.equal(v, before[k]), k
+
+
+# ---- reconstruction and the CLI at a Mip-NeRF 360 view's size ----
+
+RECON_HW = (840, 1297)
+
+
+def _wide_camera(hw, device):
+    h, w = hw
+    fovy = 2 * np.arctan(np.tan(0.4) * h / w)
+    return lookat_camera((0, 0.5, -4), (0, 0, 0), (0, 1, 0), 0.8, fovy, h, w,
+                         device=device)
+
+
+def test_ssim_is_bitwise_the_same_under_either_tf32_setting(cuda):
+    from gaussianeditor_tpu_torch.train.losses import ssim
+
+    g = torch.Generator(device="cpu").manual_seed(3)
+    a = torch.rand((*RECON_HW, 3), generator=g).to(cuda)
+    b = (a + 0.1 * torch.randn((*RECON_HW, 3), generator=g).to(cuda)).clamp(
+        0, 1)
+
+    def value_grad():
+        x = a.clone().requires_grad_(True)
+        v = ssim(x, b)
+        (gx,) = torch.autograd.grad(v, x)
+        return v.detach(), gx
+
+    saved = torch.backends.cudnn.allow_tf32
+    try:
+        out = {}
+        for tf32 in (True, False, True):
+            torch.backends.cudnn.allow_tf32 = tf32
+            out.setdefault(tf32, []).append(value_grad())
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    (v0, g0), (v1, g1) = out[True]
+    (v2, g2), = out[False]
+    assert torch.equal(v0, v1) and torch.equal(g0, g1)
+    assert torch.equal(v0, v2) and torch.equal(g0, g2)
+    ref = ssim(a.double().cpu(), b.double().cpu())
+    assert abs(float(v0) - float(ref)) < 1e-5
+
+
+def test_render_and_backward_at_1297x840_match_the_plain_route(cuda):
+    """B1-B4 at 82 x 53 tiles (a 13-bit tile field, 19 depth bits, partial
+    edge tiles on both axes) against the plain versions on the CPU."""
+    import copy
+
+    from gaussianeditor_tpu_torch.ops.binning_sorted import key_depth_bits
+    from gaussianeditor_tpu_torch.train.losses import l1_loss, ssim
+
+    assert key_depth_bits(82 * 53) == 19
+    scene = _scene(40000, cuda, seed=12, capacity=48000, sh=3)
+    g = torch.Generator(device="cpu").manual_seed(12)
+    target = torch.rand((*RECON_HW, 3), generator=g)
+
+    def run(s, dev):
+        cam = _wide_camera(RECON_HW, dev)
+        out = render(s, cam)
+        t = target.to(dev)
+        loss = 0.8 * l1_loss(out.color, t) + 0.2 * (1 - ssim(out.color, t))
+        grads = torch.autograd.grad(loss, list(s.params().values()))
+        return out, grads
+
+    _kernels.reset_launch_counts()
+    out_k, g_k = run(scene, cuda)
+    torch.cuda.synchronize()
+    assert _kernels.launch_counts() == dict(
+        NO_LAUNCHES, binning_key=1, forward_tile=1, backward_tile=1,
+        rank_segment_sum=1)
+    out_p, g_p = run(copy.deepcopy(scene).to("cpu"), torch.device("cpu"))
+    assert out_k.color.shape == (*RECON_HW, 3)
+    assert int(out_k.num_rendered) == int(out_p.num_rendered)
+    assert_images_close(out_k.color, out_p.color, name="color")
+    assert_images_close(out_k.depth, out_p.depth, loose=2e-2, name="depth")
+    assert fraction_equal(out_k.n_contrib, out_p.n_contrib) == 1.0
+    for name, a, b in zip(scene.params(), g_k, g_p):
+        b = b.to(cuda)
+        assert torch.isfinite(a).all(), name
+        scale = float(b.abs().max())
+        err = (a - b).abs()
+        assert bool((err <= 1e-3 * scale + 1e-2 * b.abs()).all()), (
+            name, float(err.max()), scale)
+
+
+def _recon_inputs(device, n_views=4, hw=(136, 200)):
+    from gaussianeditor_tpu_torch.core.cameras import orbit_cameras
+
+    target = _scene(6000, device, seed=21, sh=1)
+    cams = orbit_cameras(n_views, 4.0, 0.8, 0.6, *hw, device=device)
+    with torch.no_grad():
+        images = [render(target, c).color.clamp(0, 1).cpu().numpy()
+                  for c in cams]
+    return cams, images
+
+
+def test_recon_steps_through_every_event_repeat_bitwise(cuda):
+    from gaussianeditor_tpu_torch.train.recon import ReconConfig, ReconTrainer
+
+    cams, images = _recon_inputs(cuda)
+    init = _scene(3000, cuda, seed=22, capacity=9000, sh=3)
+    with torch.no_grad():
+        init.active_sh_degree.zero_()
+    cfg = ReconConfig(max_steps=20, densify_from_step=5,
+                      densification_interval=5, densify_grad_threshold=1e-5,
+                      opacity_reset_interval=15, oneup_sh_every=8,
+                      cameras_extent=2.0)
+
+    def run():
+        tr = ReconTrainer(init, cams, images, cfg)
+        ms = []
+        tr.fit(callback=lambda s, m: ms.append(
+            (float(m["loss"]), int(m.get("n_split", -1)))))
+        return tr, ms
+
+    _kernels.reset_launch_counts()
+    a, ma = run()
+    counts = _kernels.launch_counts()
+    b, mb = run()
+    torch.cuda.synchronize()
+    assert counts == dict(NO_LAUNCHES, binning_key=20, forward_tile=20,
+                          backward_tile=20, rank_segment_sum=20)
+    assert ma == mb and np.isfinite([m[0] for m in ma]).all()
+    assert sum(m[1] > 0 for m in ma) >= 1     # a densify split Gaussians
+    for k, v in a.scene.params().items():
+        assert torch.equal(v, getattr(b.scene, k)), k
+    assert torch.equal(a.scene.alive, b.scene.alive)
+    assert int(a.scene.active_sh_degree) == 2
+
+
+def test_recon_through_launch_counts_its_launches(cuda, tmp_path):
+    import json
+    import math
+
+    from PIL import Image
+
+    from gaussianeditor_tpu_torch.apps import launch
+    from gaussianeditor_tpu_torch.core.cameras import fov2focal, lookat_c2w
+    from gaussianeditor_tpu_torch.core.transforms import rotmat_to_quat
+    from gaussianeditor_tpu_torch.data.camera_scene import CamScene
+    from gaussianeditor_tpu_torch.data.colmap import (
+        ColmapCamera,
+        ColmapImage,
+        write_colmap_model_bin,
+    )
+
+    ws = tmp_path / "ws"
+    h, w = 104, 160
+    f = fov2focal(0.8, w)
+    cams = {1: ColmapCamera(1, "PINHOLE", w, h,
+                            np.array([f, f, w / 2, h / 2]))}
+    imgs = {}
+    for i in range(4):
+        th = 2 * math.pi * i / 4
+        eye = np.array([4 * math.cos(th), 0.5, 4 * math.sin(th)])
+        w2c = np.linalg.inv(lookat_c2w(eye, np.zeros(3), (0.0, 1.0, 0.0)))
+        q = rotmat_to_quat(w2c[:3, :3])
+        imgs[i + 1] = ColmapImage(i + 1, q, w2c[:3, 3], 1, f"v{i}.png")
+    sparse = ws / "sparse" / "0"
+    write_colmap_model_bin(str(sparse), cams, imgs)
+    rng = np.random.RandomState(0)
+    with open(sparse / "points3D.txt", "w") as fh:
+        for j in range(2000):
+            x, y, z = rng.uniform(-1, 1, 3)
+            r, g, b = rng.randint(0, 255, 3)
+            fh.write(f"{j} {x} {y} {z} {r} {g} {b} 0.5 0\n")
+    target = _scene(6000, cuda, seed=23, sh=1)
+    (ws / "images").mkdir()
+    sc = CamScene(str(ws), h=h, w=w, device=cuda)
+    for cam, name in zip(sc.cameras, sc.image_names):
+        with torch.no_grad():
+            img = render(target, cam).color.clamp(0, 1)
+        Image.fromarray((img.cpu().numpy() * 255).astype(np.uint8)).save(
+            ws / "images" / name)
+    cfg = tmp_path / "recon.json"     # JSON is YAML
+    out_dir = tmp_path / "out"
+    cfg.write_text(json.dumps(dict(
+        mode="recon", colmap_dir=str(ws), height=h, width=w, device="cuda",
+        test_views=2, output_dir=str(out_dir),
+        system=dict(max_steps=6, densify_from_step=3,
+                    densification_interval=3, oneup_sh_every=2))))
+    _kernels.reset_launch_counts()
+    launch.main(["--config", str(cfg), "--train", "--test"])
+    assert _kernels.launch_counts() == dict(
+        NO_LAUNCHES, binning_key=6 + 2, forward_tile=6 + 2, backward_tile=6,
+        rank_segment_sum=6)
+    (trial,) = out_dir.iterdir()
+    rows = [json.loads(line) for line in open(trial / "metrics.jsonl")]
+    assert len(rows) == 6 and np.isfinite([r["loss"] for r in rows]).all()
+    assert (trial / "last.ply").exists()
+    assert [p.name for p in trial.iterdir() if p.name.startswith("turn")]

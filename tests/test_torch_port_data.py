@@ -19,7 +19,12 @@ from gaussianeditor_tpu_torch.data.colmap import (
     write_colmap_model_bin,
 )
 from tests.helpers import random_scene
-from tests.torch_port_helpers import assert_camera_equal
+from tests.torch_port_helpers import (  # noqa: F401
+    assert_camera_equal,
+    one_torch_thread,
+)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def _views(n_views=5):

@@ -56,7 +56,14 @@ from gaussianeditor_tpu_torch.ops.render import render
 from gaussianeditor_tpu_torch.testing import assert_images_close
 from tests.helpers import make_camera, random_scene
 from tests.test_torch_port_train import check_one_step, run_both
-from tests.torch_port_helpers import port_camera, port_proc, port_scene
+from tests.torch_port_helpers import (  # noqa: F401
+    one_torch_thread,
+    port_camera,
+    port_proc,
+    port_scene,
+)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 MI = 8192
 GRAD_TOL = dict(atol=1e-3, rtol=1e-2)   # tests/test_pallas.py:87

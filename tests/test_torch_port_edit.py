@@ -43,7 +43,14 @@ from gaussianeditor_tpu_torch.train import checkpoint
 from gaussianeditor_tpu_torch.train.perceptual import multiscale_gradient_loss
 from gaussianeditor_tpu_torch.testing import assert_images_close
 from tests.helpers import random_scene
-from tests.torch_port_helpers import PARAMS, port_camera, port_scene
+from tests.torch_port_helpers import (  # noqa: F401
+    PARAMS,
+    one_torch_thread,
+    port_camera,
+    port_scene,
+)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 LOSS_KEYS = ("loss", "loss_l1", "loss_p", "loss_anchor_color",
              "loss_anchor_geo", "loss_anchor_scale", "loss_anchor_opacity")

@@ -10,7 +10,13 @@ from gaussianeditor_tpu.ops.knn import mean_sq_dist_to_3nn
 from gaussianeditor_tpu_torch.models import ply as tply
 from gaussianeditor_tpu_torch.models.gaussians import PARAM_NAMES, GaussianScene
 from tests.helpers import random_scene
-from tests.torch_port_helpers import port_scene, scene_fields
+from tests.torch_port_helpers import (  # noqa: F401
+    one_torch_thread,
+    port_scene,
+    scene_fields,
+)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def _assert_params_equal(tscene, jscene, n=None):

@@ -14,7 +14,13 @@ import torch
 from gaussianeditor_tpu.ops.preprocess import preprocess as jpreprocess
 from gaussianeditor_tpu_torch.ops.preprocess import preprocess
 from tests.helpers import make_camera, random_scene
-from tests.torch_port_helpers import port_camera, port_scene
+from tests.torch_port_helpers import (  # noqa: F401
+    one_torch_thread,
+    port_camera,
+    port_scene,
+)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 INT_FIELDS = ("radius", "visible", "rect_min", "rect_max", "tiles_touched")
 FLOAT_FIELDS = ("mean2d", "depth", "conic", "color", "opacity")

@@ -17,7 +17,13 @@ from gaussianeditor_tpu_torch.ops.render import (
 )
 from gaussianeditor_tpu_torch.testing import assert_images_close, fraction_equal
 from tests.helpers import make_camera, random_scene
-from tests.torch_port_helpers import port_camera, port_scene
+from tests.torch_port_helpers import (  # noqa: F401
+    one_torch_thread,
+    port_camera,
+    port_scene,
+)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 BG = (0.1, 0.2, 0.3)
 
@@ -37,6 +43,8 @@ CASES = {
     "40x72": dict(seed=6, hw=(40, 72), sh=3, override=False),
     "sh0": dict(seed=4, hw=(48, 48), sh=0, override=False),
     "mask_ch1": dict(seed=3, hw=(48, 48), sh=1, override=True),
+    # more than 1024 tiles (33 x 34), partial edge tiles on both axes
+    "1122tiles_520x530": dict(seed=7, hw=(520, 530), sh=1, override=False),
 }
 
 

@@ -37,7 +37,14 @@ from gaussianeditor_tpu_torch.ops.binning_sorted import (
 from gaussianeditor_tpu_torch.testing import assert_images_close
 from tests.helpers import make_camera, random_scene
 from tests.test_edit import _two_cluster_scene
-from tests.torch_port_helpers import port_camera, port_proc, port_scene
+from tests.torch_port_helpers import (  # noqa: F401
+    one_torch_thread,
+    port_camera,
+    port_proc,
+    port_scene,
+)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 # (height, width): 1, 4, 16 and 128 tiles, so depth cuts of 30, 29, 27 and
 # 24 bits

@@ -31,13 +31,16 @@ from gaussianeditor_tpu_torch.train import anchors, losses, optim, trainer
 from gaussianeditor_tpu_torch.train.densify import DensifyConfig
 from gaussianeditor_tpu_torch.train.perceptual import multiscale_gradient_loss
 from tests.helpers import random_scene
-from tests.torch_port_helpers import (
+from tests.torch_port_helpers import (  # noqa: F401
     PARAMS,
+    one_torch_thread,
     port_adam_state,
     port_camera,
     port_scene,
     port_stats,
 )
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 FLOAT = dict(rtol=1e-6, atol=1e-7)
 GRAD_TOL = dict(atol=1e-3, rtol=1e-2)   # tests/test_pallas.py:87

@@ -16,7 +16,9 @@ from gaussianeditor_tpu.edit.edit_system import EditConfig
 from gaussianeditor_tpu_torch.apps.webui import WebUIState, encode_png, serve
 from gaussianeditor_tpu_torch.core.cameras import orbit_cameras
 from tests.helpers import random_scene
-from tests.torch_port_helpers import port_scene
+from tests.torch_port_helpers import one_torch_thread, port_scene  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 @pytest.fixture(scope="module")

@@ -2,6 +2,7 @@
 and preprocess outputs over to the port as numpy arrays."""
 
 import numpy as np
+import pytest
 import torch
 
 from gaussianeditor_tpu_torch.models.convert import (
@@ -14,6 +15,21 @@ PARAMS = ("xyz", "features_dc", "features_rest", "opacity_raw", "log_scales",
           "quats")
 CAM_FIELDS = ("world_view", "full_proj", "cam_pos", "tan_fovx", "tan_fovy",
               "focal_x", "focal_y")
+
+
+@pytest.fixture(scope="module")
+def one_torch_thread():
+    """Run a module's tests on one torch intra-op thread, and restore the
+    count after it. The suite runs several pytest workers on a few cores:
+    a thread pool per worker oversubscribes them, and the many small ops
+    of a training loop then wait on descheduled threads (the recon and
+    CLI tests ran three to ten times slower so). A module opts in by
+    importing it and setting
+    `pytestmark = pytest.mark.usefixtures("one_torch_thread")`."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def assert_camera_equal(tc, jc):
