@@ -167,6 +167,38 @@ Phases, in order; any failure exits non-zero:
      files. Printed: the set-up parts, step medians by kind, the densify
      requests and grants, peak memory, the turntable's and the export's
      times, and each subprocess's wall time.
+ 15. the web UI's editing session over HTTP at full width (after 14):
+     the viewer's state as `main` builds it (the PLY at 4x capacity, the
+     8-view workspace at 512x512) with phase 10's segmentor and edit
+     config (no semantic prompt), `FakeInpainter`, `FakeObjectGenerator`
+     and phase 11's point segmentor, served on a free port. In order:
+     GET /render x 20 at idle; POST /trace (mask and cached weights
+     bitwise those of `update_mask_from_views` driven in process on the
+     same renders; B1 2 x 8, B2 8, B4 8); GET /groups; POST /threshold
+     at 0.3 and 0.7 (the mask `weights > t & alive`, no launch); POST
+     /click at view 0's centre (bitwise `trace_from_click` in process);
+     POST /group back to the trace (its mask restored bitwise); POST
+     /config with a good update and an unknown key; POST /edit, 30 steps,
+     while GET /render serves phase 3's view in a closed loop with GET
+     /status and GET /editframe: every frame bitwise a render of the
+     scene after some whole step, in step order, and the served scene at
+     the end bitwise that of the same `EditSystem.fit` run in process;
+     a second POST /edit stopped by POST /stop within a step of the
+     request; POST /edit in mode del (10 steps; phase 12's launches);
+     POST /add (the alive count up by 2,000; B1, B2 once); POST /save
+     (the PLY loaded again renders bitwise as the served scene); GET
+     /poses (finite, one frustum a camera); the bad requests of
+     tests/test_webui.py with the JAX codes. Printed: /render median and
+     max at idle and during the edit, the served and in-process steps per
+     second, each endpoint's time, the peak memory, each part's launches.
+ 16. SDS and DDS score guidance (after 15): the PLY loaded again,
+     `EditSystem(guidance=None)` with `SDSGuidance` and `DDSGuidance` over
+     `FakeLatentModel` on the card (lambda_sds 1, lambda_dds 0.5), 8
+     orbit views, batch 2: one SDS call against the fake encoder's VJP in
+     closed form in float64 (1e-5 of the largest entry); 10 steps (B1, B2
+     4 x 10, B3, B4 2 x 10) that must move the parameters with a nonzero
+     injected loss; 3 steps twice bitwise equal. Printed: the step
+     median, the score pass with its host round trip.
 Each phase prints its times beside the card's name and power limit;
 the script prints each phase's wall time and its total. Then it prints
 the kernels' JSON line (with each kernel's launches on every path), the
@@ -185,6 +217,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import urllib.error
 import urllib.request
 
 import numpy as np
@@ -1858,7 +1891,8 @@ def phase_click(ply: str, device: str = "cuda", size: int = SIZE) -> dict:
           f"of {size * size}; launches {c_pcr}", flush=True)
     if dev.type == "cuda":
         print(f"click: the numbers above on {nvidia_smi()}", flush=True)
-    return dict(click=c_click, tiled=c_tiled, pcr=c_pcr, click_ms=click_ms)
+    return dict(click=c_click, tiled=c_tiled, pcr=c_pcr, click_ms=click_ms,
+                point_radius=seg.radius)
 
 
 def phase_del(ply: str, cameras_extent: float, seg_ref, seg_radius: float,
@@ -2955,6 +2989,523 @@ def cli_modes(ply: str, colmap: str, tmp: str, ws: str, sc, device: str,
           flush=True)
 
 
+
+# phases 15-16: the web UI's editing session and score guidance
+WEBUI_STEPS = 30             # the served edit (as phase 10's fit)
+WEBUI_PROMPT = "the object"  # the traced group
+SCORE_STEPS = 10             # phase 16's steps at batch 2
+SCORE_REPEAT = 3             # steps of its bitwise repeat
+
+
+def _http(url: str, payload=None, raw: bytes = None, timeout: float = 300):
+    """(status, body, ms) of a GET (no payload) or a POST, over HTTP."""
+    data = raw if raw is not None else (
+        None if payload is None else json.dumps(payload).encode())
+    req = urllib.request.Request(url, data=data,
+                                 method="GET" if data is None else "POST")
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            code, body = r.status, r.read()
+    except urllib.error.HTTPError as e:
+        code, body = e.code, e.read()
+    return code, body, 1e3 * (time.perf_counter() - t0)
+
+
+def phase_webui(ply: str, colmap: str, thres: float, seg_ref,
+                seg_radius: float, point_radius: float, tmp: str,
+                device: str = "cuda", size: int = SIZE) -> dict:
+    """Phase 15: the web UI's editing session over HTTP (see the module
+    docstring); returns the launch counts of each endpoint's work."""
+    import copy
+    import dataclasses
+
+    import torch
+    from PIL import Image
+
+    from gaussianeditor_tpu_torch.apps.webui import build_state, serve
+    from gaussianeditor_tpu_torch.edit.tracing import (
+        trace_from_click,
+        update_mask_from_views,
+    )
+    from gaussianeditor_tpu_torch.guidance.fake import (
+        FakeGuidance,
+        FakeInpainter,
+        FakeObjectGenerator,
+        FakePointSegmentor,
+        FakeSegmentor,
+    )
+    from gaussianeditor_tpu_torch.models.ply import load_ply
+    from gaussianeditor_tpu_torch.ops import _kernels
+    from gaussianeditor_tpu_torch.ops.render import render
+    from gaussianeditor_tpu_torch.testing import (
+        whole_step_frames,
+        whole_step_index,
+    )
+
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def decode(body: bytes) -> np.ndarray:
+        return np.asarray(Image.open(io.BytesIO(body)))
+
+    class CountingGuidance(FakeGuidance):
+        calls = 0
+
+        def __call__(self, rgb, cond_rgb, prompt):
+            CountingGuidance.calls += 1
+            return super().__call__(rgb, cond_rgb, prompt)
+
+    t0 = time.perf_counter()
+    seg = FakeSegmentor(seg_ref, seg_radius)
+    point_seg = FakePointSegmentor(point_radius)
+    state = build_state(
+        ply, colmap, dev, size=size, guidance=CountingGuidance(),
+        segmentor=seg,
+        inpainter=FakeInpainter(),
+        object_generator=FakeObjectGenerator(n_points=ADD_POINTS, device=dev),
+        point_segmentor=point_seg)
+    extent = state.cameras_extent
+    state.edit_config = dataclasses.replace(edit_config(thres, extent),
+                                            seg_prompt="")
+    cfg, cams = state.edit_config, state.cameras
+    V = len(cams)
+    server = serve(state, port=0, block=False)
+    url = f"http://localhost:{server.server_address[1]}"
+    sync()
+    print(f"webui: state built and served ({V} views at {size}x{size}, "
+          f"capacity {state.scene.capacity}) in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    ep_ms, counts = {}, {}
+
+    def call(name, path, payload=None, raw=None, code=200):
+        c, body, ms = _http(url + path, payload, raw)
+        assert c == code, f"{name}: HTTP {c} ({body[:200]!r}), expected {code}"
+        ep_ms.setdefault(name, []).append(ms)
+        return json.loads(body) if body[:1] == b"{" else body
+
+    def counted(name, fn):
+        _kernels.reset_launch_counts()
+        out = fn()
+        counts[name] = _kernels.launch_counts()
+        return out
+
+    pose = ",".join(repr(v) for v in view_pose())
+    render_q = f"/render?size={size}&pose={pose}&fovx=0.8&fovy=0.8"
+    try:
+        # 1. frames at idle: phase 4's 20 requests
+        idle = [("orbit a", "theta=0.6&phi=0.3&radius=4"),
+                ("orbit b", "theta=2.2&phi=-0.2&radius=3.5"),
+                ("pose", f"pose={pose}&fovx=0.8&fovy=0.8"),
+                ("overlay", "theta=0.6&phi=0.3&radius=4&overlay=1")]
+        idle += [(f"sweep {i}", f"theta={0.3 * i:.2f}&phi=0.2&radius=4")
+                 for i in range(SWEEP)]
+        for name, q in idle:
+            img = decode(call("GET /render (idle)",
+                              f"/render?size={size}&{q}"))
+            assert img.shape == (size, size, 3) and img.std() > 1.0, name
+
+        # 2. the trace, held bitwise against update_mask_from_views driven
+        # in process on the same renders
+        with state.lock:
+            before = copy.deepcopy(state.scene)
+        out = counted("webui_trace", lambda: call(
+            "POST /trace", "/trace", {"prompt": WEBUI_PROMPT,
+                                      "threshold": cfg.mask_thres}))
+        with torch.no_grad():
+            masks = [seg(render(before, c, torch.zeros(3, device=dev),
+                                max_instances=cfg.max_instances
+                                ).color.cpu().numpy(), WEBUI_PROMPT)
+                     for c in cams]
+        ref, norm = update_mask_from_views(before, cams, masks,
+                                           cfg.mask_thres,
+                                           tile_cap=cfg.tile_cap,
+                                           chunk=cfg.chunk)
+        assert torch.equal(state.scene.mask, ref.mask), "trace: mask"
+        weights = state.semantic_weights[WEBUI_PROMPT]
+        assert torch.equal(weights, norm), "trace: cached weights"
+        n_alive = int(state.scene.n_alive)
+        assert out["selected"] == int(ref.mask.sum()) and \
+            out["total"] == n_alive, out
+        share = out["selected"] / n_alive
+        assert 0.01 <= share <= 0.99, f"trace selects {share}"
+        assert_launches(counts["webui_trace"], dict(
+            binning_key=2 * V, forward_tile=V, rank_segment_sum=V), "trace")
+        del before, ref, norm, masks
+
+        # 3. the groups
+        g = call("GET /groups", "/groups")
+        assert g == {"groups": [WEBUI_PROMPT], "active": WEBUI_PROMPT}, g
+
+        # 4. a new threshold, twice: `weights > t & alive`, no splat
+        sel = {}
+        for t in (0.3, 0.7):
+            out = counted("webui_threshold", lambda: call(
+                "POST /threshold", "/threshold", {"threshold": t}))
+            want = (weights > t) & state.scene.alive
+            assert torch.equal(state.scene.mask, want), f"threshold {t}"
+            assert out["selected"] == int(want.sum()), out
+            assert_launches(counts["webui_threshold"], {}, "threshold")
+            sel[t] = out["selected"]
+        t_mask = state.scene.mask.clone()
+
+        # 5. a click at view 0's centre, bitwise trace_from_click in process
+        click = (size / 2, size / 2)
+        with state.lock:
+            before = copy.deepcopy(state.scene)
+        out = counted("webui_click", lambda: call(
+            "POST /click", "/click", {"view": 0, "x": click[0], "y": click[1],
+                                      "threshold": cfg.mask_thres,
+                                      "group": "click"}))
+        renders = []
+
+        def render_fn(s, c):
+            renders.append(c)
+            with torch.no_grad():
+                return render(s, c)
+
+        ref, norm = trace_from_click(before, cams, 0, click, point_seg,
+                                     cfg.mask_thres, render_fn=render_fn,
+                                     tile_cap=cfg.tile_cap, chunk=cfg.chunk)
+        assert torch.equal(state.scene.mask, ref.mask), "click: mask"
+        assert torch.equal(state.semantic_weights["click"], norm), \
+            "click: cached weights"
+        assert out["selected"] == int(ref.mask.sum()) > 0, out
+        assert_launches(counts["webui_click"], dict(
+            binning_key=len(renders) + V, forward_tile=len(renders),
+            rank_segment_sum=V), "click")
+        del before, ref, norm
+
+        # 6. back to the traced group: its mask restored bitwise
+        out = call("POST /group", "/group", {"name": WEBUI_PROMPT})
+        assert torch.equal(state.scene.mask, t_mask), "group: mask"
+        assert out["selected"] == sel[0.7], out
+
+        # 7. the config: one good update, one unknown key
+        good = {"densification_interval": cfg.densification_interval,
+                "loss.lambda_anchor_color": cfg.loss.lambda_anchor_color}
+        out = call("POST /config", "/config", good)
+        assert out["densification_interval"] == EDIT_REFRESH and \
+            out["loss"]["lambda_anchor_color"] == 5.0, out
+        out = call("POST /config", "/config", {"no_such_knob": 1})
+        assert out == {"error": "unknown config keys: ['no_such_knob']"}, out
+        assert state.edit_config == cfg
+
+        # 8. the served edit: frames in a closed loop while it trains, each
+        # bitwise a render of some whole step; then the in-process fit
+        with state.lock:
+            scene0 = copy.deepcopy(state.scene)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        frames, render_ms, status_ms = [], [], []
+        calls0 = CountingGuidance.calls
+        _kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = call("POST /edit", "/edit", {"prompt": EDIT_PROMPT,
+                                           "steps": WEBUI_STEPS,
+                                           "mode": "edit"})
+        assert out == {"started": True, "mode": "edit",
+                       "steps": WEBUI_STEPS}, out
+        editframe = None
+        while True:
+            st = call("GET /status", "/status")
+            status_ms.append(ep_ms["GET /status"][-1])
+            if not st["training"]:
+                break
+            if editframe is None and st.get("step", -1) >= 0:
+                editframe = decode(call("GET /editframe", "/editframe?view=0"))
+            for _ in range(4):
+                frames.append(decode(call("GET /render (training)",
+                                          render_q)))
+                render_ms.append(ep_ms["GET /render (training)"][-1])
+        served_s = time.perf_counter() - t0
+        assert state.join(600)
+        c_edit = _kernels.launch_counts()
+        refreshes = CountingGuidance.calls - calls0
+        peak = torch.cuda.max_memory_allocated() / 2**30 if cuda else 0.0
+        assert "error" not in st and st["step"] == WEBUI_STEPS - 1, st
+        assert editframe is not None and editframe.shape == (size, size, 3)
+        n_frames = len(frames)
+        counts["webui_edit"] = c_edit
+        # the fit's origin renders, steps and target refreshes (one render
+        # each), and the frames served meanwhile
+        renders = 2 * WEBUI_STEPS + V + refreshes + n_frames
+        assert_launches(c_edit, dict(
+            binning_key=renders, forward_tile=renders,
+            backward_tile=2 * WEBUI_STEPS, rank_segment_sum=2 * WEBUI_STEPS),
+            "served edit")
+        sync()
+        t0 = time.perf_counter()
+        want, system = whole_step_frames(
+            scene0, cams, dataclasses.replace(cfg, prompt=EDIT_PROMPT,
+                                              max_steps=WEBUI_STEPS),
+            view_pose(), size, state.guidance, state.segmentor)
+        sync()
+        inproc_s = time.perf_counter() - t0
+        want8 = [(np.clip(w, 0, 1) * 255).astype(np.uint8) for w in want]
+        idx = [whole_step_index(f, want8) for f in frames]
+        assert n_frames >= 2 and min(idx) >= 0, f"torn frames: {idx}"
+        assert idx == sorted(idx), f"frames out of step order: {idx}"
+        assert_unchanged(state.scene, snapshot(system.scene),
+                         "the served edit against the in-process fit")
+        del scene0, want, want8, system
+        slow = sorted(zip(render_ms, idx), reverse=True)[:3]
+        print("webui edit: the slowest frames during it (ms, the step they "
+              "show; 0 is the scene before the first step): " + ", ".join(
+                  f"{ms:.1f} (step {i})" for ms, i in slow), flush=True)
+        print(f"webui edit: {WEBUI_STEPS} steps served in {served_s:.2f} s "
+              f"({WEBUI_STEPS / served_s:.3f} steps/s, {n_frames} frames "
+              f"served meanwhile), in process {inproc_s:.2f} s "
+              f"({WEBUI_STEPS / inproc_s:.3f} steps/s, one frame rendered "
+              f"a step); every served frame bitwise a whole step's (steps "
+              f"{sorted(set(idx))}); the served scene bitwise the in-process "
+              f"fit's; peak device memory {peak:.2f} GiB", flush=True)
+
+        # 9. a second edit, stopped after a few steps
+        prev = state.last_metrics   # the first run's, until a step ends
+        call("POST /edit", "/edit", {"prompt": EDIT_PROMPT,
+                                     "steps": WEBUI_STEPS, "mode": "edit"})
+        deadline = time.perf_counter() + 600
+        while state.last_metrics is prev or state.last_metrics["step"] < 2:
+            assert state.training and time.perf_counter() < deadline
+            time.sleep(0.005)
+        k = call("GET /status", "/status")["step"]
+        t0 = time.perf_counter()
+        assert call("POST /stop", "/stop", {}) == {"stopping": True}
+        assert state.join(600)
+        stop_ms = 1e3 * (time.perf_counter() - t0)
+        st = call("GET /status", "/status")
+        assert st["training"] is False and k <= st["step"] <= k + 2, (k, st)
+        print(f"webui stop: requested after step {k}, ended after step "
+              f"{st['step']}, {stop_ms:.1f} ms from POST /stop to the end "
+              "of the run", flush=True)
+
+        # 10. delete the traced object: 10 steps
+        n0 = int(state.scene.n_alive)
+        t0 = time.perf_counter()
+        out = counted("webui_del", lambda: (call(
+            "POST /edit (del)", "/edit", {"prompt": WEBUI_PROMPT,
+                                          "steps": DEL_STEPS, "mode": "del",
+                                          "inpaint_prompt": ""}),
+            state.join(600))[0])
+        del_s = time.perf_counter() - t0
+        assert out == {"started": True, "mode": "del", "steps": DEL_STEPS}
+        st = call("GET /status", "/status")
+        assert "error" not in st and st["step"] == DEL_STEPS - 1, st
+        n1 = int(state.scene.n_alive)
+        assert 0 < n1 < n0, (n0, n1)
+        # phase 12's set-up (origin renders, tracing, mask renders,
+        # renders of the pruned scene) and steps
+        assert_launches(counts["webui_del"], dict(
+            binning_key=4 * V + 2 * DEL_STEPS,
+            forward_tile=3 * V + 2 * DEL_STEPS,
+            backward_tile=2 * DEL_STEPS, rank_segment_sum=V + 2 * DEL_STEPS),
+            "served delete")
+
+        # 11. add an object
+        t0 = time.perf_counter()
+        out = counted("webui_add", lambda: (call(
+            "POST /add", "/add", {"prompt": "a stone statue",
+                                  "bbox": list(ADD_BBOX), "view": 0}),
+            state.join(600))[0])
+        add_s = time.perf_counter() - t0
+        assert out == {"started": True, "mode": "add"}, out
+        st = call("GET /status", "/status")
+        assert st == {"training": False, "added": True,
+                      "n_alive": n1 + ADD_POINTS}, st
+        assert_launches(counts["webui_add"], dict(
+            binning_key=1, forward_tile=1), "add")
+        print(f"webui del: {n0} -> {n1} alive, {del_s:.2f} s for set-up and "
+              f"{DEL_STEPS} steps; add: {n1} -> {n1 + ADD_POINTS} alive in "
+              f"{add_s:.2f} s", flush=True)
+
+        # 12. save: the PLY renders bitwise as the served scene
+        path = os.path.join(tmp, "webui.ply")
+        out = call("POST /save", "/save", {"path": path})
+        assert out == {"saved": path}
+        with state.lock:
+            served = copy.deepcopy(state.scene)
+        loaded = load_ply(path, capacity=served.capacity, device=dev)
+        cam = cams[0]
+        with torch.no_grad():
+            a = render(served, cam, torch.zeros(3, device=dev)).color
+            b = render(loaded, cam, torch.zeros(3, device=dev)).color
+        assert torch.equal(a, b), "the saved PLY renders otherwise"
+        ply_mb = os.path.getsize(path) / 2**20
+        os.remove(path)
+        del served, loaded
+
+        # 13. the poses
+        p = call("GET /poses", f"/poses?theta=0.6&phi=0.3&radius=4"
+                 f"&size={size}")
+        assert len(p["frustums"]) == V and any(f["visible"]
+                                               for f in p["frustums"])
+        for f in p["frustums"]:
+            assert all(math.isfinite(v) for s in f["segments"] for v in s)
+
+        # 14. the bad requests of tests/test_webui.py, with the JAX codes
+        call("GET /nope", "/nope", code=404)
+        call("POST /trace (not json)", "/trace", raw=b"not json", code=400)
+        call("GET /render (bad pose)", f"/render?size={size}&pose=1,2,3",
+             code=400)
+    finally:
+        state.stop_flag = True
+        state.join(600)
+        server.shutdown()
+        server.server_close()
+
+    def med(v):
+        return statistics.median(v)
+
+    idle_ms = ep_ms["GET /render (idle)"]
+    print(f"webui GET /render: idle median {med(idle_ms):.2f} ms, max "
+          f"{max(idle_ms):.2f} ms over {len(idle_ms)}; during the served edit "
+          f"median {med(render_ms):.2f} ms, max {max(render_ms):.2f} ms over "
+          f"{len(render_ms)}; GET /status during it median "
+          f"{med(status_ms):.2f} ms", flush=True)
+    print("webui endpoint times (ms): " + "; ".join(
+        f"{k} " + (f"{v[0]:.1f}" if len(v) == 1 else
+                   f"median {med(v):.1f} over {len(v)}")
+        for k, v in ep_ms.items() if not k.startswith("GET /render"))
+        + f"; the PLY {ply_mb:.1f} MiB", flush=True)
+    print("webui launches: " + "; ".join(f"{k} {v}" for k, v in
+                                          counts.items()), flush=True)
+    if cuda:
+        print(f"webui: the numbers above on {nvidia_smi()}", flush=True)
+    return counts
+
+
+def phase_score(ply: str, cameras_extent: float, device: str = "cuda",
+                size: int = SIZE) -> dict:
+    """Phase 16: SDS and DDS score guidance in `EditSystem` (see the
+    module docstring); returns the launch counts of its steps."""
+    import copy
+    import dataclasses
+
+    import torch
+
+    from gaussianeditor_tpu_torch.core.cameras import orbit_cameras
+    from gaussianeditor_tpu_torch.edit.edit_system import EditSystem
+    from gaussianeditor_tpu_torch.guidance import score
+    from gaussianeditor_tpu_torch.guidance.fake import FakeLatentModel
+    from gaussianeditor_tpu_torch.models.ply import load_ply, ply_vertex_count
+    from gaussianeditor_tpu_torch.ops import _kernels
+    from gaussianeditor_tpu_torch.train.trainer import LossWeights
+
+    dev = torch.device(device)
+    tm = Timers(dev)
+    scene = load_ply(ply, capacity=4 * ply_vertex_count(ply), device=dev)
+    cams = orbit_cameras(EDIT_VIEWS, 4.0, 0.8, 0.8, size, size, device=dev)
+    model = FakeLatentModel(device=dev)
+    sds, dds = score.SDSGuidance(model), score.DDSGuidance(model)
+    cfg = dataclasses.replace(
+        edit_config(0.0, cameras_extent), seg_prompt="",
+        max_steps=SCORE_STEPS, densify_until_step=0,
+        loss=LossWeights(lambda_l1=10.0, lambda_p=0.0,
+                         lambda_anchor_color=5.0, lambda_anchor_geo=50.0,
+                         lambda_anchor_scale=50.0, lambda_anchor_opacity=50.0,
+                         lambda_sds=1.0, lambda_dds=0.5))
+
+    def system(s):
+        return EditSystem(s, cams, cfg, guidance=None, perceptual=None,
+                          sds_guidance=sds, dds_guidance=dds,
+                          dds_prompts=(EDIT_PROMPT, "a statue"))
+
+    # one SDS call against the fake encoder's VJP in closed form: grad @
+    # proj^T / 64 over each 8x8 block, in float64
+    with torch.no_grad():
+        from gaussianeditor_tpu_torch.ops.render import render
+
+        imgs = torch.stack([render(scene, c, torch.zeros(3, device=dev)
+                                   ).color for c in cams[:2]])
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    t = torch.randint(20, 981, (2,), generator=gen, device=dev)
+    noise = torch.randn((2, size // 8, size // 8, 4), generator=gen,
+                        device=dev)
+    g, info = sds(imgs, imgs.flip(0), EDIT_PROMPT, step=0, t=t, noise=noise)
+    with torch.no_grad():
+        lat, clat = model.encode(imgs), model.encode(imgs.flip(0))
+        tb = t[:, None, None, None]
+        noisy = sds.sched.add_noise(lat, noise, tb)
+        pred = score.cfg_combine3(
+            model.unet(noisy, t, EDIT_PROMPT, clat),
+            model.unet(noisy, t, "", clat),
+            model.unet(noisy, t, "", torch.zeros_like(clat)), 7.5, 1.5)
+        grad = (sds.sched.w(tb) * (pred - noise)).double() / 2
+        per_block = grad @ model.proj.double().T / 64.0
+        want = per_block.repeat_interleave(8, 1).repeat_interleave(8, 2)
+    err = float((g.double() - want).abs().max())
+    scale = float(want.abs().max())
+    assert err <= 1e-5 * scale, f"SDS VJP: {err} against {scale}"
+    print(f"score: SDS image gradient against the closed-form VJP in "
+          f"float64: max abs error {err:.3g} (largest |g| {scale:.3g}); "
+          f"grad_norm {float(info['grad_norm']):.4g}", flush=True)
+    del imgs, g, want, per_block, grad
+
+    # 10 steps, the score pass timed with its host round trip
+    sys_a = system(copy.deepcopy(scene))
+    sys_a._score_inject = tm.wrap("score", sys_a._score_inject)
+    rec, last = [], [0.0]
+
+    def callback(step, m):
+        tm.sync()
+        now = time.perf_counter()
+        rec.append((step, 1e3 * (now - last[0]),
+                    {k: float(v) for k, v in m.items()}))
+        last[0] = time.perf_counter()
+
+    sys_a.on_fit_start()
+    before = sys_a.state.scene.features_dc.detach().clone()
+    xyz0 = sys_a.state.scene.xyz.detach().clone()
+    _kernels.reset_launch_counts()
+    tm.sync()
+    last[0] = time.perf_counter()
+    sys_a.fit(callback=callback)
+    tm.sync()
+    c_steps = _kernels.launch_counts()
+    print(f"score launches over {SCORE_STEPS} steps: {c_steps}", flush=True)
+    assert_launches(c_steps, dict(
+        binning_key=4 * SCORE_STEPS, forward_tile=4 * SCORE_STEPS,
+        backward_tile=2 * SCORE_STEPS, rank_segment_sum=2 * SCORE_STEPS),
+        "score steps")
+    st = sys_a.state.scene
+    moved = float((st.features_dc.detach() - before).abs().max())
+    moved_xyz = float((st.xyz.detach() - xyz0).abs().max())
+    assert moved > 0 and moved_xyz > 0, "the parameters did not move"
+    for _, _, m in rec:
+        assert all(math.isfinite(v) for v in m.values()), m
+        assert m["loss_inject"] != 0.0, m
+    step_ms = [ms for _, ms, _ in rec]
+    score_ms = tm.ms["score"]
+
+    # 3 steps twice from the same scene and seeds: bitwise equal
+    runs = []
+    for _ in range(2):
+        s = system(copy.deepcopy(scene))
+        s.fit(n_steps=SCORE_REPEAT)
+        runs.append(s)
+    assert_unchanged(runs[0].state.scene, snapshot(runs[1].state.scene),
+                     "score repeat")
+    for k in runs[0].state.opt_state.mu:
+        assert torch.equal(runs[0].state.opt_state.mu[k],
+                           runs[1].state.opt_state.mu[k]), k
+    print(f"score: {SCORE_STEPS} steps (SDS 1.0 and DDS 0.5, batch 2, "
+          f"{scene.capacity} slots): ms per step median "
+          f"{statistics.median(step_ms[1:]):.2f} (first {step_ms[0]:.2f}), "
+          f"the score pass with its host round trip median "
+          f"{statistics.median(score_ms[1:]):.2f} ms; features_dc moved up "
+          f"to {moved:.3g}, xyz {moved_xyz:.3g}; loss_inject "
+          + ", ".join(f"{m['loss_inject']:.4g}" for _, _, m in rec)
+          + f"; {SCORE_REPEAT} steps repeated bitwise", flush=True)
+    if dev.type == "cuda":
+        print(f"score: the numbers above on {nvidia_smi()}", flush=True)
+    return dict(score_steps=c_steps)
+
+
 def main() -> int:
     import torch
 
@@ -3072,11 +3623,22 @@ def main() -> int:
         # 14. reconstruction at full width and the CLI
         rc = phase_recon(ply, os.path.join(tmp, "colmap"), tmp)
         walls["14"] = time.perf_counter() - t_start - sum(walls.values())
+        torch.cuda.empty_cache()
+
+        # 15. the web UI's editing session over HTTP
+        wb = phase_webui(ply, os.path.join(tmp, "colmap"), thres, *ed["seg"],
+                         ck["point_radius"], tmp)
+        walls["15"] = time.perf_counter() - t_start - sum(walls.values())
+        torch.cuda.empty_cache()
+
+        # 16. SDS and DDS score guidance
+        sc = phase_score(ply, extent)
+        walls["16"] = time.perf_counter() - t_start - sum(walls.values())
 
     # launches on each kernel's own path: B1 and B2 serve frames (phase
     # 4), B3 and B4 train (phase 7), B5 and B6 train on the dense route
     # (phase 9); every path's counts are listed, the edit loop's (phase
-    # 10) by part
+    # 10) and the web UI's (phase 15) by part
     names = {"B1 binning_key": ("binning_key", serve_counts),
              "B2 forward_tile": ("forward_tile", serve_counts),
              "B3 backward_tile": ("backward_tile", train_counts),
@@ -3100,7 +3662,12 @@ def main() -> int:
                                  "mesh_fit": ad["mesh_fit"][key],
                                  "recon_steps": rc["recon_steps"][key],
                                  "recon_test": rc["recon_test"][key],
-                                 "cli_modes": rc["cli_modes"][key]}
+                                 "cli_modes": rc["cli_modes"][key],
+                                 **{p: wb[p][key] for p in (
+                                     "webui_trace", "webui_threshold",
+                                     "webui_click", "webui_edit",
+                                     "webui_del", "webui_add")},
+                                 "score_steps": sc["score_steps"][key]}
         if k["name"] in rc["recon_view"]:
             k["recon_view"] = rc["recon_view"][k["name"]]
     print("wall time by phase (s): " + ", ".join(

@@ -22,10 +22,11 @@ its write) as a `timings: {...}` JSON line, and the process's launches
 of each hand-written kernel as a `launches: {...}` line.
 
 Guidance, segmentation and inpainting take the fakes of
-`guidance/fake.py`. The diffusion adapters are not ported yet: the names
-`ip2p`, `controlnet*`, `langsam`, and `controlnet` or `sdxl` as an
-inpainter raise ValueError (the JAX CLI raises ImportError where
-diffusers is missing). Add takes the Wonder3D adapter with
+`guidance/fake.py` ('fake') or the diffusion adapters of
+`guidance/diffusers_adapters.py` (`ip2p`, `controlnet[-<type>]`,
+`langsam`, and `controlnet` or `sdxl` as an inpainter) on the config's
+device; those raise the JAX CLI's ImportError where diffusers (or
+lang-segment-anything) is missing. Add takes the Wonder3D adapter with
 `wonder3d_root` and the DPT depth estimator with `dpt: true`.
 """
 
@@ -48,38 +49,64 @@ from gaussianeditor_tpu_torch.config.config import load_config, parse_structured
 from gaussianeditor_tpu_torch.ops import _kernels
 from gaussianeditor_tpu_torch.utils.profiling import StepTimer
 
-_NOT_PORTED = ("is not ported yet: its diffusion adapter comes with the "
-               "guidance layer (ROADMAP.md, queue A: the guidance layer); "
-               "use 'fake'")
-
-
 def build_guidance(name: str, cfg: dict):
+    """The JAX CLI's guidance by name: 'fake', 'ip2p' or
+    'controlnet[-<control type>]'. The diffusion adapters run on the
+    config's `device` unless `guidance_kwargs` names one; without
+    diffusers they raise ImportError."""
     if name == "fake":
         from gaussianeditor_tpu_torch.guidance.fake import FakeGuidance
 
         return FakeGuidance()
-    if name == "ip2p" or name.startswith("controlnet"):
-        raise ValueError(f"guidance '{name}' {_NOT_PORTED}")
+    kwargs = {"device": cfg.get("device", "cuda"),
+              **cfg.get("guidance_kwargs", {})}
+    if name == "ip2p":
+        from gaussianeditor_tpu_torch.guidance.diffusers_adapters import (
+            InstructPix2PixGuidance,
+        )
+
+        return InstructPix2PixGuidance(**kwargs)
+    if name.startswith("controlnet"):
+        from gaussianeditor_tpu_torch.guidance.diffusers_adapters import (
+            ControlNetGuidance,
+        )
+
+        control_type = name.split("-", 1)[1] if "-" in name else "p2p"
+        return ControlNetGuidance(control_type=control_type, **kwargs)
     raise ValueError(f"unknown guidance '{name}'")
 
 
-def build_segmentor(name: str):
+def build_segmentor(name: str, device="cuda"):
     if name == "fake":
         from gaussianeditor_tpu_torch.guidance.fake import FakeSegmentor
 
         return FakeSegmentor()
     if name == "langsam":
-        raise ValueError(f"segmentor '{name}' {_NOT_PORTED}")
+        from gaussianeditor_tpu_torch.guidance.diffusers_adapters import (
+            LangSAMSegmentor,
+        )
+
+        return LangSAMSegmentor(device=str(device))
     raise ValueError(f"unknown segmentor '{name}'")
 
 
-def build_inpainter(name: str):
+def build_inpainter(name: str, device="cuda"):
     if name == "fake":
         from gaussianeditor_tpu_torch.guidance.fake import FakeInpainter
 
         return FakeInpainter()
-    if name in ("controlnet", "sdxl"):
-        raise ValueError(f"inpainter '{name}' {_NOT_PORTED}")
+    if name == "controlnet":
+        from gaussianeditor_tpu_torch.guidance.diffusers_adapters import (
+            ControlNetInpainter,
+        )
+
+        return ControlNetInpainter(device=str(device))
+    if name == "sdxl":
+        from gaussianeditor_tpu_torch.guidance.diffusers_adapters import (
+            SDXLInpainter,
+        )
+
+        return SDXLInpainter(device=str(device))
     raise ValueError(f"unknown inpainter '{name}'")
 
 
@@ -230,7 +257,7 @@ def _build_system(mode: str, cfg: dict, sys_cfg: dict, scene, scene_cams,
         return EditSystem(
             scene, scene_cams.cameras, parse_structured(EditConfig, sys_cfg),
             guidance=build_guidance(cfg.get("guidance", "fake"), cfg),
-            segmentor=build_segmentor(cfg.get("segmentor", "fake"))
+            segmentor=build_segmentor(cfg.get("segmentor", "fake"), device)
             if sys_cfg.get("seg_prompt") else None,
         )
     if mode == "del":
@@ -241,8 +268,8 @@ def _build_system(mode: str, cfg: dict, sys_cfg: dict, scene, scene_cams,
 
         return DelSystem(
             scene, scene_cams.cameras, parse_structured(DelConfig, sys_cfg),
-            inpainter=build_inpainter(cfg.get("inpainter", "fake")),
-            segmentor=build_segmentor(cfg.get("segmentor", "fake")),
+            inpainter=build_inpainter(cfg.get("inpainter", "fake"), device),
+            segmentor=build_segmentor(cfg.get("segmentor", "fake"), device),
         )
     if mode == "add":
         from gaussianeditor_tpu_torch.edit.add_system import (
@@ -281,7 +308,7 @@ def _build_system(mode: str, cfg: dict, sys_cfg: dict, scene, scene_cams,
                 device=device)
         system = AddSystem(
             scene, scene_cams.cameras, parse_structured(AddConfig, sys_cfg),
-            inpainter=build_inpainter(cfg.get("inpainter", "fake")),
+            inpainter=build_inpainter(cfg.get("inpainter", "fake"), device),
             object_generator=generator,
             depth_estimator=depth_est,
         )

@@ -3,11 +3,11 @@
 Counterpart of `gaussianeditor_tpu/guidance/fake.py` (`FakeGuidance`,
 `FakeSegmentor`, `FakePointSegmentor`, `FakeInpainter`,
 `FakeObjectGenerator`), copied: they are numpy, so both packages give
-bitwise equal outputs on the same inputs.
+bitwise equal outputs on the same inputs; and `FakeLatentModel`, the
+score paths' latent model, in torch on an explicit device.
 They make the editing loop testable without checkpoints or network: the
 fake guidance applies a fixed prompt-derived linear color transform to
 the origin render, a consistent and reachable multi-view target.
-(`FakeLatentModel` comes with the score slice.)
 """
 
 from __future__ import annotations
@@ -15,7 +15,9 @@ from __future__ import annotations
 import hashlib
 
 import numpy as np
+import torch
 
+from gaussianeditor_tpu_torch import resolve_device
 from gaussianeditor_tpu_torch.guidance.base import GuidanceOutput
 
 
@@ -77,6 +79,47 @@ class FakePointSegmentor:
         ref = img[y, x]
         d = np.linalg.norm(img - ref[None, None], axis=-1)
         return (d < self.radius).astype(np.float32)
+
+
+class FakeLatentModel:
+    """Deterministic `LatentModel` for the SDS and DDS score paths
+    (guidance/score.py), on `device`: encode is an 8x8 average pool
+    through a fixed 3->4-channel projection drawn from
+    `np.random.RandomState(seed)` as the JAX model draws it (so both
+    packages hold the same matrix), differentiable, so autograd gives
+    the encoder's backward as it does through a VAE; unet is a smooth
+    function of (latents, t, prompt hash), a * tanh(z) + b * t / 1000
+    plus 0.1 * tanh(cond), so that different prompts predict different
+    noise and the CFG combinations do not collapse. Images and latents
+    are channels-last, [B, H, W, 3] and [B, H / 8, W / 8, 4]."""
+
+    latent_channels = 4
+    down = 8
+
+    def __init__(self, seed: int = 0, device="cuda"):
+        self.device = resolve_device(device)
+        rng = np.random.RandomState(seed)
+        self.proj = torch.from_numpy(
+            rng.randn(3, self.latent_channels).astype(np.float32)
+        ).to(self.device)
+
+    def encode(self, images: torch.Tensor) -> torch.Tensor:
+        B, H, W, _ = images.shape
+        d = self.down
+        x = images.reshape(B, H // d, d, W // d, d, 3).mean(dim=(2, 4))
+        return x @ self.proj
+
+    def unet(self, latents_noisy, t, prompt: str, cond_latents=None):
+        h = hashlib.sha256(prompt.encode()).digest()
+        a = 0.5 + h[0] / 255.0
+        b = h[1] / 255.0 - 0.5
+        tt = torch.as_tensor(t, dtype=torch.float32,
+                             device=latents_noisy.device).reshape(
+                                 -1, 1, 1, 1) / 1000.0
+        out = a * torch.tanh(latents_noisy) + b * tt
+        if cond_latents is not None:
+            out = out + 0.1 * torch.tanh(cond_latents)
+        return out
 
 
 class FakeObjectGenerator:

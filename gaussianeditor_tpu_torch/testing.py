@@ -5,7 +5,9 @@
 (the JAX suite's image tolerance), kept here so that code which must not
 import the JAX test helpers can apply the same bounds. `adversarial_rows`
 and `dense_from_rows` make inputs for the backward kernels' tests, on the
-CPU and on the card.
+CPU and on the card. `watch_served_fit`, `whole_step_frames` and
+`whole_step_index` check that the web UI serves only whole steps of a
+fit.
 """
 
 from __future__ import annotations
@@ -115,3 +117,71 @@ def dense_from_rows(start, cnt, payload):
         num_rendered=torch.tensor(int(cnt.sum()), **i32),
         overflow=torch.tensor(False, device=dev))
     return inst, db
+
+
+def scene_storage(scene) -> set:
+    """The storage addresses of a GaussianScene's non-empty parameters and
+    buffers."""
+    return {t.untyped_storage().data_ptr()
+            for t in list(scene.parameters()) + list(scene.buffers())
+            if t.numel() > 0}
+
+
+def watch_served_fit(state, pose, size: int, steps: int, prompt: str = "p",
+                     timeout: float = 600.0):
+    """Start an edit fit of `steps` steps on the web UI's `state` and,
+    while it runs, take frames of the client pose `pose` (16 floats, fov
+    0.8) through `state.render_image`, each time checking under the lock
+    that the served scene shares no storage with the training state's
+    scene. Returns (frames, shared): the float frames taken while the fit
+    ran and the number of checks that found shared storage. Raises if
+    the fit does not end within `timeout` seconds."""
+    import time
+
+    out = state.start_training(prompt, steps, "edit")
+    assert out.get("started"), out
+    frames, shared = [], 0
+    t_end = time.monotonic() + timeout
+    try:
+        while state.training and time.monotonic() < t_end:
+            frames.append(state.render_image(0.0, 0.0, 0.0, size, False,
+                                             pose=pose))
+            system = state._active_system
+            with state.lock:
+                if system is not None and system.state is not None:
+                    shared += bool(scene_storage(state.scene)
+                                   & scene_storage(system.state.scene))
+    finally:
+        if state.training:
+            state.stop_flag = True
+        assert state.join(timeout), "the served fit did not end"
+    assert "error" not in state.last_metrics, state.last_metrics
+    return frames, shared
+
+
+def whole_step_frames(scene, cameras, cfg, pose, size: int, guidance,
+                      segmentor=None):
+    """What a served fit may show at `pose`: `webui.scene_image` of
+    `scene`, then of the training state's scene after each whole step of
+    `EditSystem(scene, cameras, cfg, ...).fit()`. Returns (frames,
+    system)."""
+    from gaussianeditor_tpu_torch.apps.webui import scene_image
+    from gaussianeditor_tpu_torch.core.cameras import Camera
+    from gaussianeditor_tpu_torch.edit.edit_system import EditSystem
+
+    cam = Camera.from_c2w(np.asarray(pose, np.float64).reshape(4, 4), 0.8,
+                          0.8, size, size, device=scene.device)
+    frames = [scene_image(scene, cam, False, cfg.max_instances)]
+    system = EditSystem(scene, cameras, cfg, guidance=guidance,
+                        segmentor=segmentor)
+    system.fit(callback=lambda step, m: frames.append(scene_image(
+        system.state.scene, cam, False, cfg.max_instances)))
+    return frames, system
+
+
+def whole_step_index(frame: np.ndarray, candidates) -> int:
+    """The index of the first candidate bitwise equal to `frame`, or -1."""
+    for i, c in enumerate(candidates):
+        if np.array_equal(frame, c):
+            return i
+    return -1

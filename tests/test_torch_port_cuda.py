@@ -952,3 +952,44 @@ def test_recon_through_launch_counts_its_launches(cuda, tmp_path):
     assert len(rows) == 6 and np.isfinite([r["loss"] for r in rows]).all()
     assert (trial / "last.ply").exists()
     assert [p.name for p in trial.iterdir() if p.name.startswith("turn")]
+
+
+def test_served_frames_are_whole_steps_on_cuda(cuda):
+    """The web UI on the card: frames taken while a fit runs are each
+    bitwise a render of the scene after some whole step, in step order;
+    the served scene never shares storage with the training state's; after
+    the fit it is the scene of the same fit run in process."""
+    import copy
+    import dataclasses
+
+    from gaussianeditor_tpu_torch.apps.webui import WebUIState
+    from gaussianeditor_tpu_torch.core.cameras import lookat_c2w, orbit_cameras
+    from gaussianeditor_tpu_torch.edit.edit_system import EditConfig
+    from gaussianeditor_tpu_torch.guidance.fake import FakeGuidance
+    from gaussianeditor_tpu_torch.testing import (
+        watch_served_fit,
+        whole_step_frames,
+        whole_step_index,
+    )
+
+    state = WebUIState(
+        _scene(5000, cuda, seed=7, capacity=6000),
+        orbit_cameras(4, 4.0, 0.8, 0.8, 64, 64, device=cuda), 2.0,
+        guidance=FakeGuidance(),
+        edit_config=EditConfig(batch_size=2, cameras_extent=2.0,
+                               densify_until_step=0))
+    pose = [float(v) for v in lookat_c2w((0.0, 0.5, -4.0), (0.0, 0.0, 0.0),
+                                         (0.0, 1.0, 0.0)).reshape(-1)]
+    scene0 = copy.deepcopy(state.scene)
+    frames, shared = watch_served_fit(state, pose, 64, steps=12)
+    assert shared == 0, "the served scene shared the train state's storage"
+    cfg = dataclasses.replace(state.edit_config, prompt="p", max_steps=12)
+    want, system = whole_step_frames(scene0, state.cameras, cfg, pose, 64,
+                                     FakeGuidance())
+    assert len(frames) >= 2 and not np.array_equal(want[0], want[-1])
+    idx = [whole_step_index(f, want) for f in frames]
+    assert min(idx) >= 0 and idx == sorted(idx), idx
+    served = list(state.scene.parameters()) + list(state.scene.buffers())
+    fitted = list(system.scene.parameters()) + list(system.scene.buffers())
+    for a, b in zip(served, fitted):
+        assert torch.equal(a, b)

@@ -6,8 +6,9 @@ workspace (no densify in range: the draws do not cross frameworks), the
 two `last.ply` files held at `tests/test_torch_port_recon.py`'s
 parameter bound and the losses of `metrics.jsonl` at rtol 1e-3;
 --gradio, --resume, --validate and --test; the TensorBoard logger
-without tensorboard; the guidance names whose adapters are not ported;
-and no fallback to the CPU when the config names no device."""
+without tensorboard; the diffusion adapters' names, which raise the JAX
+CLI's ImportError without diffusers; and no fallback to the CPU when the
+config names no device."""
 
 import importlib
 import json
@@ -21,6 +22,7 @@ import torch
 import yaml
 from PIL import Image
 
+from gaussianeditor_tpu.apps import launch as jlaunch
 from gaussianeditor_tpu.apps.launch import main as jlaunch_main
 from gaussianeditor_tpu.train.lpips_jax import random_weights, save_weights
 from gaussianeditor_tpu_torch.apps import launch
@@ -265,9 +267,18 @@ def test_tensorboard_logger_writes_and_degrades(tmp_path, monkeypatch):
     (launch.build_inpainter, "sdxl"),
 ], ids=lambda v: getattr(v, "__name__", v))
 def test_unported_guidance_names_raise(build, name):
+    """Without diffusers (or lang-segment-anything) each adapter's name
+    raises the JAX CLI's ImportError, its message naming the port's
+    fakes where the JAX one names its own."""
     args = (name, {}) if build is launch.build_guidance else (name,)
-    with pytest.raises(ValueError, match="queue A: the guidance layer"):
+    with pytest.raises(ImportError) as got:
         build(*args)
+    with pytest.raises(ImportError) as want:
+        getattr(jlaunch, build.__name__)(*args)
+    assert str(got.value) == str(want.value).replace(
+        "gaussianeditor_tpu.", "gaussianeditor_tpu_torch.")
+    assert ("diffusers" if name != "langsam" else "lang-segment-anything") \
+        in str(got.value)
     with pytest.raises(ValueError, match="unknown"):
         build(*(("bogus",) + args[1:]))
 

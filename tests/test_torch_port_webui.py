@@ -85,10 +85,12 @@ def test_pose_overlay_and_errors(viewer):
     over = decode_png(_get(url + "/render?theta=0&phi=0&size=48&overlay=1")[0])
     assert (over != plain).any()  # the masked half is tinted red
     assert _code(url + "/render?size=48&pose=1,2,3") == 400
-    for path in ("/status", "/poses", "/editframe", "/config", "/nope"):
+    # the JAX viewer's codes (tests/test_webui.py::test_bad_requests): no
+    # edited frames before a training, unknown paths, a body not JSON
+    for path in ("/editframe", "/nope"):
         assert _code(url + path) == 404
-    for path in ("/trace", "/edit", "/save", "/stop"):
-        assert _code(url + path, data=json.dumps({}).encode()) == 404
+    assert _code(url + "/nope", data=json.dumps({}).encode()) == 404
+    assert _code(url + "/trace", data=b"not json") == 400
 
 
 @pytest.mark.parametrize("overlay", [False, True])
