@@ -18,7 +18,7 @@ Phases, in order; any failure exits non-zero:
      image bounds and its n_contrib must equal the plain version's on
      every pixel.
      Each kernel is timed with CUDA events (median of 20 samples), beside
-     its plain version on the color view (3 samples for B2's, which
+     its plain version on the color view (1 sample for B2's, which
      takes seconds a call).
   4. the main path: the viewer's state is built as its `main` builds it
      (the PLY plus a synthetic COLMAP workspace) and served over HTTP;
@@ -37,7 +37,7 @@ Phases, in order; any failure exits non-zero:
      tolerance (atol 1e-3, rtol 1e-2) against its plain version, kernel
      B4's per-Gaussian sums 1e-5 of each column's RMS against its plain
      version, and B3 followed by B4 must repeat bitwise. Timed with
-     CUDA events (median of 20 samples; the plain versions over 3),
+     CUDA events (median of 20 samples; the plain versions once),
      beside `torch.segment_reduce`, the one PyTorch call that computes
      B4's function.
   7. the train path: the edit train step at full width (the scene of
@@ -199,6 +199,35 @@ Phases, in order; any failure exits non-zero:
      4 x 10, B3, B4 2 x 10) that must move the parameters with a nonzero
      injected loss; 3 steps twice bitwise equal. Printed: the step
      median, the score pass with its host round trip.
+ 17. multi-device training and the oracle (after 16), from the PLY
+     loaded again; the launch counts zeroed before each part. (a) Phase
+     3's view as 4 strips of 8 tile rows (`render_strip`, B1-B4 each 4
+     times with the strips' backward) against the whole render: the
+     image bounds (the max abs difference and the pixels beyond 1e-5
+     printed) and the summed strip gradients of a seeded probe plus
+     0.05 sum(final_T) at normalised atol 1e-3 (the strips keep the whole
+     image's depth cut; at the strip grid's own cut, the JAX strips', the
+     difference is printed); B1-B4 against their plain versions at strip
+     1's grid (256 tiles) as phases 3 and 6 hold them;
+     the strips' forward and backward times beside the whole render's.
+     (b) `make_sharded_train_step` at world size 1 under NCCL in this
+     process, 3 steps against `make_train_step` from the same state
+     (phase 7's optimizer, views, targets and weights): xyz atol 1e-5 /
+     rtol 1e-4, the gradient accumulator rtol 1e-3, max radii exact, loss
+     rtol 1e-5; whether they are bitwise equal and the step medians
+     printed. (c) Two spawned ranks sharing the card under gloo with CUDA
+     tensors (gloo stages them through the host), each loading the PLY:
+     one view-sharded step at world 2, one 2-D step on a 1x2 (view x tile)
+     mesh with 1 - SSIM through `gather_rows`, a 2-strip
+     `make_tile_sharded_render` and `ssim_sharded` on two random 512x512
+     images; rank 0 holds each against its single-process counterpart (the
+     tolerances of tests/test_parallel.py and tests/test_mesh2d.py, the
+     image bounds, rtol 1e-6 and gradient atol 1e-6), the ranks'
+     parameters must be bitwise equal after each step, and each rank's
+     launches, collectives' time, step time and peak memory are printed.
+     (d) `render(impl="ref")` on a 2,000-Gaussian cut of the bench recipe
+     at 128x128 against the sorted route (image bounds), in float64
+     against float32, no kernel launched, timed.
 Each phase prints its times beside the card's name and power limit;
 the script prints each phase's wall time and its total. Then it prints
 the kernels' JSON line (with each kernel's launches on every path), the
@@ -227,6 +256,8 @@ SH_DEGREE = 3
 SIZE = 512
 SEED = 0
 RUNS = 20
+PLAIN_RUNS = 1               # samples of a plain version's time (seconds
+                             # a call; one keeps the script near 400 s)
 SWEEP = 16                   # extra orbit frames served after the 4 named ones
 H100_BYTES_PER_S = 3.35e12   # HBM3, H100 SXM data sheet
 H100_FP32_PER_S = 67e12      # FP32 outside the tensor cores, same sheet
@@ -479,7 +510,8 @@ def replay_nc_flips(sb, tk, tp, gx: int, label: str, limit: int = 64,
 
 
 def check_kernels(proc, gx: int, gy: int, budget: int, label: str,
-                  time_plain: bool, replay_flips: bool = False) -> dict:
+                  time_plain: bool, replay_flips: bool = False,
+                  depth_bits=None) -> dict:
     """B1 and B2 on one view's preprocessed inputs, each against its plain
     version; returns their errors, times and bounds, and B2's plain tiles.
     The plain versions are timed only when `time_plain` is set. B2's
@@ -487,7 +519,8 @@ def check_kernels(proc, gx: int, gy: int, budget: int, label: str,
     `replay_flips`, a pixel where they differ passes if that pixel's
     walk replayed on the card reproduces the plain version's, and both
     counts are the float64 walk's within one float32 tie
-    (`replay_nc_flips`)."""
+    (`replay_nc_flips`). depth_bits: the key's depth cut, the grid's
+    default when None."""
     import torch
 
     from gaussianeditor_tpu_torch.ops.binning_sorted import (
@@ -515,7 +548,7 @@ def check_kernels(proc, gx: int, gy: int, budget: int, label: str,
     b_incl = torch.cumsum(proc.tiles_touched, 0, dtype=torch.int32)
     total = int(b_incl[-1])
     n = min(total, -(-budget // 128) * 128)
-    kdb = key_depth_bits(T)
+    kdb = key_depth_bits(T) if depth_bits is None else depth_bits
     key_args = (b_incl, proc.tiles_touched, proc.rect_min, proc.rect_max,
                 proc.mean2d, proc.conic, proc.opacity, proc.depth,
                 proc.color, n, total, gx, kdb)
@@ -551,7 +584,7 @@ def check_kernels(proc, gx: int, gy: int, budget: int, label: str,
 
     # --- B2 ---
     with torch.no_grad():
-        sb = sorted_bin(proc, gx, gy, budget)
+        sb = sorted_bin(proc, gx, gy, budget, depth_bits=kdb)
     assert not bool(sb.overflow)
     tk = forward_tiles(sb, gx, ch)
     tp, evaluated, contributed = forward_tiles_plain(sb.tile_bounds,
@@ -579,9 +612,10 @@ def check_kernels(proc, gx: int, gy: int, budget: int, label: str,
                         float((tk.depth - tp.depth).abs().max()),
                         float((tk.final_T - tp.final_T).abs().max()))
     out["b2_ms"] = time_ms(lambda: forward_tiles(sb, gx, ch))
-    # the plain version takes seconds per call: a few samples suffice
+    # the plain version takes seconds per call: one sample suffices
     out["b2_plain_ms"] = time_ms(lambda: forward_tiles_plain(
-        sb.tile_bounds, sb.payload, gx, ch), runs=3) if time_plain else None
+        sb.tile_bounds, sb.payload, gx, ch),
+        runs=PLAIN_RUNS) if time_plain else None
     pairs = int(evaluated.sum())
     contrib = int(contributed.sum())
     b2_ops = B2_OPS_EVALUATED * pairs + (B2_OPS_CONTRIB_BASE + 2 * (ch + 1)) * contrib
@@ -850,9 +884,11 @@ def phase_backward(view, time_plain: bool = True) -> list:
     b4_ms = time_ms(lambda: rank_segment_sum(rows, b_incl, tt, C))
     b3_plain_ms = b4_plain_ms = None
     if time_plain:
-        b3_plain_ms = time_ms(lambda: backward_tiles_plain(*args), runs=3)
+        b3_plain_ms = time_ms(lambda: backward_tiles_plain(*args),
+                              runs=PLAIN_RUNS)
         b4_plain_ms = time_ms(
-            lambda: rank_segment_sum_plain(rows, b_incl, tt, C), runs=3)
+            lambda: rank_segment_sum_plain(rows, b_incl, tt, C),
+            runs=PLAIN_RUNS)
     # the library's segmented sum over rank-major rows, segments cut at n
     lengths = (torch.clamp(b_incl.long(), max=n)
                - torch.clamp(b_incl.long() - tt.long(), max=n))
@@ -1068,8 +1104,9 @@ def phase_dense(view, scene, cam, budget: int):
     # --- times and bounds, the color view ---
     bargs = (inst, db, tk, g_color, g_depth, g_T, gx)
     b5_plain_ms = time_ms(lambda: forward_chunks_plain(inst, db, gx),
-                          runs=3)
-    b6_plain_ms = time_ms(lambda: backward_chunks_plain(*bargs), runs=3)
+                          runs=PLAIN_RUNS)
+    b6_plain_ms = time_ms(lambda: backward_chunks_plain(*bargs),
+                          runs=PLAIN_RUNS)
     total = int(db.num_rendered)
     NC, P, _ = inst.shape
     G = P       # gradient fields: 2 + 3 + 1 + ch + 1
@@ -3506,6 +3543,577 @@ def phase_score(ply: str, cameras_extent: float, device: str = "cuda",
     return dict(score_steps=c_steps)
 
 
+# phase 17: multi-device training and the oracle
+STRIPS = 4                   # (a): the 32 tile rows as 4 strips of 8
+WORLD1_STEPS = 3             # (b): view-sharded steps at world size 1
+ORACLE_N = 2000              # (d): the oracle's scene, a cut of bench.py's
+ORACLE_SIZE = 128
+GLOO_TIMEOUT = 600.0         # (c): the two spawned ranks' deadline
+
+
+def _grad_params(scene) -> list:
+    from gaussianeditor_tpu_torch.models.gaussians import PARAM_NAMES
+
+    return [getattr(scene, k) for k in PARAM_NAMES]
+
+
+def compare_states(got, want, label: str, param_atol=None,
+                   accum_rtol=None) -> None:
+    """`got`'s parameters and densify statistics against `want`'s, at the
+    JAX tests' tolerances: xyz at atol 1e-5 / rtol 1e-4
+    (tests/test_parallel.py), or every parameter at atol `param_atol`
+    when given (tests/test_mesh2d.py); the gradient accumulator at rtol
+    `accum_rtol` when given; max radii exactly. Prints each check's
+    largest error and the entries beyond it, then asserts."""
+    import torch
+
+    from gaussianeditor_tpu_torch.models.gaussians import PARAM_NAMES
+
+    bad = {}
+
+    def check(name, a, b, atol, rtol):
+        err = (a - b).abs()
+        over = int((err > atol + rtol * b.abs()).sum())
+        print(f"  {label} {name}: max abs diff {float(err.max()):.3g}, "
+              f"{over} entries beyond atol {atol:g} / rtol {rtol:g}",
+              flush=True)
+        if over:
+            bad[name] = over
+
+    if param_atol is None:
+        check("xyz", got.scene.xyz.detach(), want.scene.xyz.detach(), 1e-5,
+              1e-4)
+    else:
+        for k in PARAM_NAMES:
+            check(k, getattr(got.scene, k).detach(),
+                  getattr(want.scene, k).detach(), param_atol, 0.0)
+    if accum_rtol is not None:
+        check("xyz_gradient_accum", got.stats.xyz_gradient_accum,
+              want.stats.xyz_gradient_accum, 1e-5, accum_rtol)
+    radii_eq = torch.equal(got.stats.max_radii2d, want.stats.max_radii2d)
+    print(f"  {label} max_radii2d equal: {radii_eq}", flush=True)
+    assert radii_eq, f"{label}: max radii differ"
+    assert not bad, f"{label}: beyond tolerance {bad}"
+
+
+def states_equal(a, b) -> bool:
+    import torch
+
+    from gaussianeditor_tpu_torch.models.gaussians import PARAM_NAMES
+
+    return (all(torch.equal(getattr(a.scene, k), getattr(b.scene, k))
+                for k in PARAM_NAMES)
+            and all(torch.equal(getattr(a.stats, f), getattr(b.stats, f))
+                    for f in ("xyz_gradient_accum", "denom", "max_radii2d")))
+
+
+def phase_strips(scene, budget: int, device: str = "cuda",
+                 size: int = SIZE) -> dict:
+    """Phase 17 (a): phase 3's view as STRIPS tile-row strips in one
+    process, against the whole render (image bounds; gradients of a
+    seeded probe, normalised atol 1e-3); B1-B4 against their plain
+    versions at strip 1's grid; the launches and the times."""
+    import torch
+
+    from gaussianeditor_tpu_torch.core.cameras import lookat_camera
+    from gaussianeditor_tpu_torch.models.gaussians import PARAM_NAMES
+    from gaussianeditor_tpu_torch.ops import _kernels
+    from gaussianeditor_tpu_torch.ops.binning_sorted import (
+        key_depth_bits,
+        sorted_bin,
+    )
+    from gaussianeditor_tpu_torch.ops.composite import tiles_to_image
+    from gaussianeditor_tpu_torch.ops.render import render
+    from gaussianeditor_tpu_torch.ops.tile_composite import forward_tiles
+    from gaussianeditor_tpu_torch.parallel.tile_sharded import (
+        preprocess_strip,
+        render_strip,
+    )
+    from gaussianeditor_tpu_torch.testing import assert_images_close
+
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    cam = lookat_camera((0.0, 0.0, -4.0), (0.0, 0.0, 0.0), (0.0, 1.0, 0.0),
+                        0.8, 0.8, size, size, device=dev)
+    gx = gy = size // 16
+    gyl = gy // STRIPS
+    hs = gyl * 16
+    params = _grad_params(scene)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    probe = torch.randn((size, size, 3), generator=gen, device=dev)
+
+    def strips():
+        return [render_strip(scene, cam, i * gyl, gyl, max_instances=budget)
+                for i in range(STRIPS)]
+
+    def strips_grad():
+        outs = strips()
+        loss = sum(torch.sum(o.color * probe[i * hs:(i + 1) * hs])
+                   + 0.05 * torch.sum(o.final_T) for i, o in enumerate(outs))
+        return outs, torch.autograd.grad(loss, params)
+
+    def full():
+        return render(scene, cam, torch.zeros(3, device=dev),
+                      max_instances=budget)
+
+    def full_grad():
+        out = full()
+        loss = torch.sum(out.color * probe) + 0.05 * torch.sum(out.final_T)
+        return out, torch.autograd.grad(loss, params)
+
+    _kernels.reset_launch_counts()
+    outs, g_strips = strips_grad()
+    if cuda:
+        torch.cuda.synchronize()
+    counts = _kernels.launch_counts()
+    print(f"strips: launches of {STRIPS} strip renders with their backward: "
+          f"{counts}", flush=True)
+    if cuda:
+        assert_launches(counts, dict(binning_key=STRIPS, forward_tile=STRIPS,
+                                     backward_tile=STRIPS,
+                                     rank_segment_sum=STRIPS), "strips")
+    assert not any(bool(o.overflow) for o in outs), "a strip overflowed"
+    whole, g_full = full_grad()
+    color = torch.cat([o.color for o in outs])[:size].detach()
+    final_T = torch.cat([o.final_T for o in outs])[:size].detach()
+    assert_images_close(color, whole.color.detach(), name="strips color")
+    assert_images_close(final_T, whole.final_T.detach(),
+                        name="strips final_T")
+    diff = (color - whole.color.detach()).abs()
+    n_px = int((diff > 1e-5).any(dim=-1).sum())
+    grad_err = {}
+    for k, a, b in zip(PARAM_NAMES, g_strips, g_full):
+        den = float(b.abs().max()) + 1e-8
+        grad_err[k] = float((a - b).abs().max()) / den
+    print(f"strips: {STRIPS} strips of {gyl} tile rows against the whole "
+          f"render: color max abs diff {float(diff.max()):.3g}, {n_px} of "
+          f"{size * size} pixels beyond 1e-5; summed strip gradients, max "
+          f"abs diff over the whole render's largest: "
+          + ", ".join(f"{k} {v:.3g}" for k, v in grad_err.items()),
+          flush=True)
+    assert all(v <= 1e-3 for v in grad_err.values()), grad_err
+    # the JAX strips' depth cut, the strip grid's own: ties of quantised
+    # depth order otherwise (printed, not held)
+    own = key_depth_bits(gx * gyl)
+    with torch.no_grad():
+        color_own = []
+        for i in range(STRIPS):
+            proc = preprocess_strip(scene, cam, i * gyl, gyl)
+            sb = sorted_bin(proc, gx, gyl, budget, depth_bits=own)
+            color_own.append(tiles_to_image(forward_tiles(sb, gx, 3).color,
+                                            gx, gyl, hs, size))
+        color_own = torch.cat(color_own)[:size]
+    diff_own = (color_own - whole.color.detach()).abs()
+    n_own = int((diff_own > 1e-5).any(dim=-1).sum())
+    print(f"strips: at the strip grid's own depth cut ({own} bits, the "
+          f"whole image's {key_depth_bits(gx * gy)}), as the JAX strips "
+          f"cut: color max abs diff {float(diff_own.max()):.3g}, {n_own} "
+          f"pixels beyond 1e-5", flush=True)
+    del outs, g_strips, whole, g_full, color_own
+
+    out = dict(counts=counts, pixels_beyond=n_px, grad_err=grad_err,
+               own_cut=dict(bits=own, max_abs_diff=float(diff_own.max()),
+                            pixels_beyond=n_own))
+    if not cuda:
+        return out
+    with torch.no_grad():
+        t_fwd = time_ms(strips, runs=5)
+        t_full = time_ms(full, runs=5)
+    t_fb = time_ms(strips_grad, runs=5)
+    t_full_fb = time_ms(full_grad, runs=5)
+    print(f"strips: forward of the {STRIPS} strips {t_fwd:.2f} ms against the "
+          f"whole render's {t_full:.2f} ms ({t_fwd / t_full:.2f}x); backward "
+          f"{t_fb - t_fwd:.2f} ms against {t_full_fb - t_full:.2f} ms "
+          f"({(t_fb - t_fwd) / (t_full_fb - t_full):.2f}x); forward and "
+          f"backward {t_fb:.2f} against {t_full_fb:.2f} ms", flush=True)
+    out.update(ms=dict(strips_forward=t_fwd, full_forward=t_full,
+                       strips_forward_backward=t_fb,
+                       full_forward_backward=t_full_fb))
+
+    # each kernel against its plain version at strip 1's grid
+    with torch.no_grad():
+        proc = preprocess_strip(scene, cam, gyl, gyl)
+    k = check_kernels(proc, gx, gyl, budget, "strip 1", time_plain=False,
+                      depth_bits=key_depth_bits(gx * gy))
+    rows = phase_backward(dict(proc=proc, sb=k["sb"], tiles=k["tiles"],
+                               contrib=k["contrib"], gx=gx, gy=gyl,
+                               budget=budget), time_plain=False)
+    out["strip_grid"] = {
+        "B1 binning_key": dict(ms=k["b1_ms"], max_abs_err=k["b1_err"],
+                               bound_ms=k["b1_bound"]),
+        "B2 forward_tile": dict(ms=k["b2_ms"], max_abs_err=k["b2_err"],
+                                bound_ms=k["b2_bound"]),
+        **{r["name"]: dict(ms=r["ms"], max_abs_err=r["max_abs_err"],
+                           bound_ms=r["bound_ms"]) for r in rows}}
+    for name, v in out["strip_grid"].items():
+        v.update(tiles=gx * gyl)
+    print(f"strips: the numbers above on {nvidia_smi()}", flush=True)
+    return out
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase_world1(ply: str, tr: dict, device: str = "cuda") -> dict:
+    """Phase 17 (b): the view-sharded step at world size 1 under NCCL (gloo
+    on the CPU), in this process, against `make_train_step` from the same
+    state (phase 7's optimizer, cameras, targets and weights)."""
+    import copy
+
+    import torch
+    import torch.distributed as dist
+
+    from gaussianeditor_tpu_torch.models.ply import load_ply, ply_vertex_count
+    from gaussianeditor_tpu_torch.ops import _kernels
+    from gaussianeditor_tpu_torch.parallel.mesh import (
+        initialize_distributed,
+        make_mesh,
+    )
+    from gaussianeditor_tpu_torch.parallel.sharded_step import (
+        make_sharded_train_step,
+    )
+    from gaussianeditor_tpu_torch.train.perceptual import (
+        multiscale_gradient_loss,
+    )
+    from gaussianeditor_tpu_torch.train.trainer import (
+        LossWeights,
+        init_train_state,
+        make_train_step,
+    )
+
+    optim, cams, targets = tr["optim"], tr["cams"], tr["targets"]
+    scene = load_ply(ply, capacity=4 * ply_vertex_count(ply), device=device)
+    dev = initialize_distributed(f"127.0.0.1:{_free_port()}", 1, 0,
+                                 device=device)
+    try:
+        backend = dist.get_backend()
+        sharded = make_sharded_train_step(optim, LossWeights(), make_mesh(1),
+                                          perceptual=multiscale_gradient_loss)
+        single = make_train_step(optim, LossWeights(),
+                                 perceptual=multiscale_gradient_loss)
+        sa = init_train_state(copy.deepcopy(scene), optim)
+        sb = init_train_state(scene, optim)
+        _kernels.reset_launch_counts()
+        sa, hist_a = run_steps(sharded, sa, cams, targets, WORLD1_STEPS)
+        counts = _kernels.launch_counts()
+        sb, hist_b = run_steps(single, sb, cams, targets, WORLD1_STEPS)
+    finally:
+        dist.destroy_process_group()
+    print(f"world1: launches over {WORLD1_STEPS} steps: {counts}", flush=True)
+    if dev.type == "cuda":
+        assert_launches(counts, {k: 2 * WORLD1_STEPS for k in (
+            "binning_key", "forward_tile", "backward_tile",
+            "rank_segment_sum")}, "world-1 steps")
+    compare_states(sa, sb, "world1", accum_rtol=1e-3)
+    losses = [(float(ma["loss"]), float(mb["loss"]))
+              for (_, ma), (_, mb) in zip(hist_a, hist_b)]
+    for a, b in losses:
+        assert abs(a - b) <= 1e-5 * abs(b), losses
+    bitwise = states_equal(sa, sb) and all(a == b for a, b in losses)
+    med_a = statistics.median(t for t, _ in hist_a)
+    med_b = statistics.median(t for t, _ in hist_b)
+    print(f"world1: {WORLD1_STEPS} view-sharded steps at world size 1 "
+          f"({backend}) against make_train_step: losses {losses}; bitwise "
+          f"equal: "
+          f"{bitwise}; step median {med_a:.2f} ms against {med_b:.2f} ms "
+          f"here and {tr['stats']['median']:.2f} ms in phase 7 (ms per "
+          f"step, host clock)", flush=True)
+    if dev.type == "cuda":
+        print(f"world1: the numbers above on {nvidia_smi()}", flush=True)
+    return dict(counts=counts, bitwise=bitwise, median_ms=med_a,
+                single_median_ms=med_b)
+
+
+def one_minus_ssim(pred, target):
+    from gaussianeditor_tpu_torch.train.losses import ssim
+
+    return 1.0 - ssim(pred, target)
+
+
+def _gloo_rank(rank: int, world: int, ply: str, optim_config,
+               targets: np.ndarray, device: str, size: int) -> dict:
+    """Phase 17 (c), one of two ranks sharing cuda:0 under gloo (see
+    `phase_gloo`)."""
+    import copy
+
+    import torch
+    import torch.distributed as dist
+
+    from gaussianeditor_tpu_torch.core.cameras import orbit_cameras
+    from gaussianeditor_tpu_torch.models.ply import load_ply, ply_vertex_count
+    from gaussianeditor_tpu_torch.ops import _kernels
+    from gaussianeditor_tpu_torch.ops.render import (
+        default_max_instances,
+        render,
+    )
+    from gaussianeditor_tpu_torch.parallel.halo import ssim_sharded
+    from gaussianeditor_tpu_torch.parallel.mesh import make_mesh, make_mesh_2d
+    from gaussianeditor_tpu_torch.parallel.mesh2d import make_2d_train_step
+    from gaussianeditor_tpu_torch.parallel.sharded_step import (
+        make_sharded_train_step,
+    )
+    from gaussianeditor_tpu_torch.parallel.tile_sharded import (
+        make_tile_sharded_render,
+    )
+    from gaussianeditor_tpu_torch.testing import (
+        assert_images_close,
+        fingerprint,
+    )
+    from gaussianeditor_tpu_torch.train.losses import ssim
+    from gaussianeditor_tpu_torch.train.optim import GaussianAdam
+    from gaussianeditor_tpu_torch.train.perceptual import (
+        multiscale_gradient_loss,
+    )
+    from gaussianeditor_tpu_torch.train.trainer import (
+        LossWeights,
+        init_train_state,
+        make_train_step,
+    )
+
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    scene = load_ply(ply, capacity=4 * ply_vertex_count(ply), device=dev)
+    cams = orbit_cameras(2, 4.0, 0.8, 0.8, size, size, device=dev)
+    targets = torch.from_numpy(targets).to(dev)
+    optim = GaussianAdam(optim_config)
+    out = {"backend": dist.get_backend()}
+
+    # the collectives' time: every all_reduce and all_gather timed
+    coll = []
+    originals = dist.all_reduce, dist.all_gather
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def timed(fn):
+        def run(*a, **k):
+            sync()
+            t0 = time.perf_counter()
+            res = fn(*a, **k)
+            sync()
+            coll.append(1e3 * (time.perf_counter() - t0))
+            return res
+        return run
+
+    def same_on_both_ranks(state) -> bool:
+        fp = fingerprint(list(state.scene.params().values()))
+        got = [torch.empty_like(fp) for _ in range(world)]
+        originals[1](got, fp)
+        return all(torch.equal(got[0], g) for g in got[1:])
+
+    def part(name, fn):
+        sync()
+        dist.barrier()      # both ranks start the part together
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        coll.clear()
+        _kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = fn()
+        sync()
+        out[name] = dict(ms=1e3 * (time.perf_counter() - t0),
+                         collectives_ms=sum(coll), collectives=len(coll),
+                         launches=_kernels.launch_counts(),
+                         peak_gib=(torch.cuda.max_memory_allocated() / 2**30
+                                   if cuda else 0.0))
+        return res
+
+    dist.all_reduce, dist.all_gather = timed(originals[0]), timed(originals[1])
+    try:
+        # the view-sharded step, one view a rank
+        step = make_sharded_train_step(optim, LossWeights(), make_mesh(world),
+                                       perceptual=multiscale_gradient_loss)
+        st = init_train_state(copy.deepcopy(scene), optim)
+        st, m = part("view", lambda: step(st, cams, targets))
+        out["view"]["loss"] = float(m["loss"])
+        out["view"]["ranks_bitwise"] = same_on_both_ranks(st)
+        if rank == 0:
+            single = make_train_step(optim, LossWeights(),
+                                     perceptual=multiscale_gradient_loss)
+            ss, ms = single(init_train_state(copy.deepcopy(scene), optim),
+                            cams, targets)
+            print("gloo view-sharded step against make_train_step:",
+                  flush=True)
+            compare_states(st, ss, "gloo view", accum_rtol=1e-3)
+            assert abs(float(m["loss"]) - float(ms["loss"])) <= \
+                1e-5 * abs(float(ms["loss"])), (float(m["loss"]), ms["loss"])
+            out["view"]["bitwise_single"] = states_equal(st, ss)
+            del ss
+        del st
+
+        # the 2-D step on a 1x2 (view x tile) mesh, 1 - SSIM through
+        # gather_rows as the perceptual term
+        step2 = make_2d_train_step(optim, LossWeights(), make_mesh_2d((1, 2)),
+                                   perceptual=one_minus_ssim)
+        st = init_train_state(copy.deepcopy(scene), optim)
+        st, m = part("2d", lambda: step2(st, cams, targets))
+        out["2d"].update(loss=float(m["loss"]), loss_p=float(m["loss_p"]),
+                         overflow=bool(m["overflow"]),
+                         ranks_bitwise=same_on_both_ranks(st))
+        if rank == 0:
+            single = make_train_step(optim, LossWeights(),
+                                     perceptual=one_minus_ssim)
+            ss, ms = single(init_train_state(copy.deepcopy(scene), optim),
+                            cams, targets)
+            print("gloo 2-D step against make_train_step:", flush=True)
+            compare_states(st, ss, "gloo 2d", param_atol=2e-5)
+            for k in ("loss", "loss_p"):
+                a, b = float(m[k]), float(ms[k])
+                assert abs(a - b) <= 2e-5 * abs(b), (k, a, b)
+            assert not bool(m["overflow"])
+            del ss
+        del st
+
+        # the strip-sharded render, 2 strips
+        budget = default_max_instances(scene.capacity)
+        fn = make_tile_sharded_render(make_mesh(world, axis="tile"),
+                                      scene.capacity, cams[0],
+                                      max_instances_per_shard=budget)
+        bg = torch.tensor([0.2, 0.1, 0.4], device=dev)
+        with torch.no_grad():
+            color, ovf = part("strip_render", lambda: fn(scene, bg))
+            if rank == 0:
+                want = render(scene, cams[0], bg).color
+                assert_images_close(color, want, name="gloo strip render")
+                out["strip_render"]["max_abs_diff"] = float(
+                    (color - want).abs().max())
+        assert not bool(ovf)
+
+        # halo SSIM on two random images of the view's size, each rank its
+        # rows
+        rng = np.random.RandomState(2)
+        a = rng.rand(size, size, 3).astype(np.float32)
+        b = (rng.rand(size, size, 3) * 0.5 + a * 0.5).astype(np.float32)
+        hs = size // world
+        ta = torch.from_numpy(a[rank * hs:(rank + 1) * hs]).to(dev)
+        ta.requires_grad_(True)
+        tb = torch.from_numpy(b[rank * hs:(rank + 1) * hs]).to(dev)
+        s = part("ssim", lambda: ssim_sharded(ta, tb))
+        (g,) = torch.autograd.grad(s, [ta])
+        parts = [torch.empty_like(g) for _ in range(world)]
+        originals[1](parts, g.contiguous())
+        if rank == 0:
+            fa = torch.from_numpy(a).to(dev).requires_grad_(True)
+            want = ssim(fa, torch.from_numpy(b).to(dev))
+            (gw,) = torch.autograd.grad(want, [fa])
+            got_g = torch.cat(parts)
+            out["ssim"].update(value=float(s.detach()),
+                               want=float(want.detach()),
+                               grad_err=float((got_g - gw).abs().max()))
+            assert abs(out["ssim"]["value"] - out["ssim"]["want"]) <= \
+                1e-6 * abs(out["ssim"]["want"]), out["ssim"]
+            assert out["ssim"]["grad_err"] <= 1e-6, out["ssim"]["grad_err"]
+    finally:
+        dist.all_reduce, dist.all_gather = originals
+    return out
+
+
+def phase_gloo(ply: str, tr: dict, device: str = "cuda:0",
+               size: int = SIZE) -> dict:
+    """Phase 17 (c): two spawned ranks share cuda:0 under gloo, with CUDA
+    tensors (gloo stages them through the host: its transport, printed
+    here): one view-sharded step at world 2, one 2-D step on a 1x2 mesh
+    with 1 - SSIM through `gather_rows`, a 2-strip render and the halo
+    SSIM; rank 0 holds each against its single-process counterpart, and
+    both ranks' parameters must be bitwise equal after each step."""
+    import torch
+
+    from gaussianeditor_tpu_torch.testing import run_ranks
+
+    t0 = time.perf_counter()
+    ranks = run_ranks(_gloo_rank, 2, ply, tr["optim"].config,
+                      tr["targets"].cpu().numpy(), device, size,
+                      device=device, backend="gloo", timeout=GLOO_TIMEOUT)
+    wall = time.perf_counter() - t0
+    for r, res in enumerate(ranks):
+        assert res["backend"] == "gloo", res["backend"]
+        for p in ("view", "2d"):
+            assert res[p]["ranks_bitwise"], f"rank {r} {p}: ranks differ"
+        print(f"gloo rank {r}: " + "; ".join(
+            f"{p} {res[p]['ms']:.1f} ms (collectives {res[p]['collectives']}"
+            f" calls, {res[p]['collectives_ms']:.1f} ms), peak "
+            f"{res[p]['peak_gib']:.2f} GiB, launches {res[p]['launches']}"
+            for p in ("view", "2d", "strip_render", "ssim")), flush=True)
+    cuda = torch.device(device).type == "cuda"
+    for res in ranks if cuda else ():
+        for p, n in (("view", 1), ("2d", 2)):
+            assert_launches(res[p]["launches"], {k: n for k in (
+                "binning_key", "forward_tile", "backward_tile",
+                "rank_segment_sum")}, f"gloo {p}")
+        assert_launches(res["strip_render"]["launches"],
+                        dict(binning_key=1, forward_tile=1),
+                        "gloo strip render")
+    r0 = ranks[0]
+    where = (f"one card ({torch.cuda.get_device_name(0)}), CUDA tensors "
+             f"through gloo's host transport" if cuda else "the CPU")
+    print(f"gloo: two ranks on {where}: parameters bitwise "
+          f"equal across the ranks after each step; view-sharded step "
+          f"bitwise make_train_step's: {r0['view']['bitwise_single']}; "
+          f"2-D loss {r0['2d']['loss']:.6g}, loss_p {r0['2d']['loss_p']:.6g}; "
+          f"2-strip render max abs diff "
+          f"{r0['strip_render']['max_abs_diff']:.3g}; halo SSIM "
+          f"{r0['ssim']['value']:.7f} against {r0['ssim']['want']:.7f}"
+          f" (gradient max abs diff {r0['ssim']['grad_err']:.3g}); the spawn "
+          f"{wall:.1f} s", flush=True)
+    if cuda:
+        print(f"gloo: the numbers above on {nvidia_smi()}", flush=True)
+    return dict(ranks=ranks, wall_s=wall)
+
+
+def phase_oracle(device: str = "cuda") -> None:
+    """Phase 17 (d): `render(impl="ref")` on a 2,000-Gaussian cut of the
+    bench recipe at 128x128 against the sorted route (image bounds), and
+    in float64 against the float32 oracle; the oracle launches no
+    kernel."""
+    import torch
+
+    from gaussianeditor_tpu_torch.core.cameras import lookat_camera
+    from gaussianeditor_tpu_torch.models.gaussians import GaussianScene
+    from gaussianeditor_tpu_torch.ops import _kernels
+    from gaussianeditor_tpu_torch.ops.render import render
+    from gaussianeditor_tpu_torch.testing import assert_images_close
+
+    dev = torch.device(device)
+    arrays = bench_scene_arrays(ORACLE_N, SEED)
+    scene = GaussianScene.create(
+        {k: torch.from_numpy(v) for k, v in arrays.items()},
+        max_sh_degree=SH_DEGREE, active_sh_degree=SH_DEGREE).to(dev)
+    cam = lookat_camera((0.0, 0.0, -4.0), (0.0, 0.0, 0.0), (0.0, 1.0, 0.0),
+                        0.8, 0.8, ORACLE_SIZE, ORACLE_SIZE, device=dev)
+    bg = torch.tensor([0.1, 0.2, 0.3], device=dev)
+    tm = Timers(dev)
+    with torch.no_grad():
+        fast = render(scene, cam, bg)
+        _kernels.reset_launch_counts()
+        ref = tm.wrap("ref", render)(scene, cam, bg, impl="ref")
+        ref64 = tm.wrap("ref64", render)(
+            scene.to(torch.float64), cam, bg.double(), impl="ref")
+    counts = _kernels.launch_counts()
+    assert_launches(counts, {}, "the oracle")
+    for name, loose in (("color", 6e-3), ("depth", 2e-2), ("final_T", 6e-3)):
+        assert_images_close(getattr(fast, name), getattr(ref, name),
+                            loose=loose, name=f"oracle {name}")
+        assert_images_close(getattr(ref64, name).float(), getattr(ref, name),
+                            loose=loose, name=f"oracle float64 {name}")
+    n_vis = int(ref.visible.sum())
+    print(f"oracle: {ORACLE_N} Gaussians ({n_vis} visible) at "
+          f"{ORACLE_SIZE}x{ORACLE_SIZE}: the sorted route within the image "
+          f"bounds of render(impl='ref') (color max abs diff "
+          f"{float((fast.color - ref.color).abs().max()):.3g}), float64 "
+          f"within them of float32 (max abs diff "
+          f"{float((ref64.color.float() - ref.color).abs().max()):.3g}); no "
+          f"kernel launched; {tm.total('ref'):.0f} ms in float32, "
+          f"{tm.total('ref64'):.0f} ms in float64", flush=True)
+    if dev.type == "cuda":
+        print(f"oracle: the numbers above on {nvidia_smi()}", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -3518,8 +4126,13 @@ def main() -> int:
         return 1
     from gaussianeditor_tpu_torch.apps.webui import build_state
     from gaussianeditor_tpu_torch.models.gaussians import GaussianScene
-    from gaussianeditor_tpu_torch.models.ply import save_ply
+    from gaussianeditor_tpu_torch.models.ply import (
+        load_ply,
+        ply_vertex_count,
+        save_ply,
+    )
     from gaussianeditor_tpu_torch.ops import _kernels
+    from gaussianeditor_tpu_torch.ops.render import default_max_instances
 
     smi = nvidia_smi()
     print(f"device: {smi}; torch {torch.__version__}, CUDA "
@@ -3592,6 +4205,7 @@ def main() -> int:
 
         # 9. the train path through the dense route
         dense_counts = phase_train_dense(tr, ply)
+        tr17 = {k: tr[k] for k in ("optim", "cams", "targets", "stats")}
         del tr
         torch.cuda.empty_cache()
 
@@ -3634,11 +4248,27 @@ def main() -> int:
         # 16. SDS and DDS score guidance
         sc = phase_score(ply, extent)
         walls["16"] = time.perf_counter() - t_start - sum(walls.values())
+        torch.cuda.empty_cache()
+
+        # 17. multi-device training and the oracle: strips in one process,
+        # the view-sharded step at world size 1 (NCCL), two ranks sharing
+        # the card under gloo, render(impl="ref")
+        scene = load_ply(ply, capacity=4 * ply_vertex_count(ply),
+                         device="cuda")
+        strips = phase_strips(scene, default_max_instances(scene.capacity))
+        del scene
+        torch.cuda.empty_cache()
+        world1 = phase_world1(ply, tr17)
+        torch.cuda.empty_cache()
+        gloo = phase_gloo(ply, tr17)
+        phase_oracle()
+        walls["17"] = time.perf_counter() - t_start - sum(walls.values())
 
     # launches on each kernel's own path: B1 and B2 serve frames (phase
     # 4), B3 and B4 train (phase 7), B5 and B6 train on the dense route
     # (phase 9); every path's counts are listed, the edit loop's (phase
-    # 10) and the web UI's (phase 15) by part
+    # 10), the web UI's (phase 15) and the multi-device parts' (phase 17,
+    # each gloo rank's) by part
     names = {"B1 binning_key": ("binning_key", serve_counts),
              "B2 forward_tile": ("forward_tile", serve_counts),
              "B3 backward_tile": ("backward_tile", train_counts),
@@ -3667,9 +4297,17 @@ def main() -> int:
                                      "webui_trace", "webui_threshold",
                                      "webui_click", "webui_edit",
                                      "webui_del", "webui_add")},
-                                 "score_steps": sc["score_steps"][key]}
+                                 "score_steps": sc["score_steps"][key],
+                                 "strips": strips["counts"][key],
+                                 "sharded_world1": world1["counts"][key],
+                                 **{f"gloo_{p}_rank{r}":
+                                    gloo["ranks"][r][p]["launches"][key]
+                                    for p in ("view", "2d", "strip_render")
+                                    for r in (0, 1)}}
         if k["name"] in rc["recon_view"]:
             k["recon_view"] = rc["recon_view"][k["name"]]
+        if k["name"] in strips["strip_grid"]:
+            k["strip_grid"] = strips["strip_grid"][k["name"]]
     print("wall time by phase (s): " + ", ".join(
         f"{k} {v:.1f}" for k, v in walls.items())
         + f"; total {time.perf_counter() - t_start:.1f} s", flush=True)

@@ -27,7 +27,7 @@ whose gradient is the viewspace gradient the densify statistics read.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -126,12 +126,18 @@ def preprocess(
     scale_modifier: float = 1.0,
     override_color: Optional[torch.Tensor] = None,
     mean2d_offset_ndc: Optional[torch.Tensor] = None,
+    tile_row_range: Optional[Tuple[int, int]] = None,
 ) -> ProcessedGaussians:
     """Project all C Gaussians into `camera` (on the Gaussians' device).
 
     Culled and dead Gaussians stay in place with `visible=False`,
     `radius=0` and `tiles_touched=0`. `mean2d_offset_ndc` [C, 2] is added
-    to the NDC projection (the densification probe)."""
+    to the NDC projection (the densification probe). `tile_row_range`
+    (ty0, ty1) keeps only the tile rows [ty0, ty1) of the image, for a
+    strip render (`parallel/tile_sharded.py`): the rects' rows are
+    clipped to it and made strip-local (ty0 subtracted), so
+    `tiles_touched` and `visible` count the strip's tiles alone;
+    `mean2d` stays in image pixels."""
     W, H = camera.width, camera.height
     x, y, z = xyz[:, 0], xyz[:, 1], xyz[:, 2]
 
@@ -248,6 +254,10 @@ def preprocess(
                                     (mxs + rx_f + TILE) / TILE), grid_x)
     rmaxy = _clip_int(torch.minimum((mys + radius_f + TILE - 1) / TILE,
                                     (mys + ry_f + TILE) / TILE), grid_y)
+    if tile_row_range is not None:
+        ty0, ty1 = (int(v) for v in tile_row_range)
+        rminy = torch.clamp(rminy, ty0, ty1) - ty0
+        rmaxy = torch.clamp(rmaxy, ty0, ty1) - ty0
     tiles = torch.where(dead_op, 0, (rmaxx - rminx) * (rmaxy - rminy))
 
     visible = in_frustum & det_valid & (tiles > 0)

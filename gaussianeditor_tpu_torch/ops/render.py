@@ -5,7 +5,7 @@ Counterpart of `gaussianeditor_tpu/ops/render.py` (`RenderOutput`,
 channels-last, [H, W, C], as in the JAX package; `bg` is added after
 compositing, weighted by the final transmittance.
 
-Three routes, chosen by `impl` as in the JAX package:
+Four routes, chosen by `impl` as in the JAX package:
   * 'pallas' (the default, also `None`): sorted binning and the tile
     compositor, kernels B1 and B2 forward (`csrc/binning_key.cu`,
     `csrc/forward_tile.cu`) and B3 and B4 backward
@@ -29,7 +29,10 @@ package also sends budgets above 2^24 to 'pallas4', because its sorted
 route carries ints through f32; here ints stay int32 and int64 keys, so
 every budget takes the route `impl` names. `tile_cap` and `chunk` (the
 JAX scan compositor's knobs) are accepted on every route and ignored.
-'ref' (the JAX package's dense oracle) is not ported yet and raises.
+  * 'ref': the dense oracle (`ops/refimpl.py::composite_dense`), plain
+    torch in the scene's dtype, O(P x H x W): for tests and small scenes.
+    No binning and no kernel; `num_rendered` is the sum of
+    `tiles_touched`, `overflow` False and `n_contrib` None.
 
 Differentiable: under autograd the preprocess is differentiated as
 plain torch and the compositor through `TileComposite` or
@@ -56,12 +59,13 @@ from gaussianeditor_tpu_torch.ops.binning_sorted import (
 from gaussianeditor_tpu_torch.ops.composite import tiles_to_image
 from gaussianeditor_tpu_torch.ops.dense_composite import DenseComposite
 from gaussianeditor_tpu_torch.ops.preprocess import TILE, preprocess
+from gaussianeditor_tpu_torch.ops.refimpl import composite_dense
 from gaussianeditor_tpu_torch.ops.tile_composite import (
     KERNEL_CHANNELS,
     TileComposite,
 )
 
-IMPLS = (None, "pallas", "pallas4", "tiled")
+IMPLS = (None, "pallas", "pallas4", "tiled", "ref")
 
 
 class RenderOutput(NamedTuple):
@@ -73,7 +77,8 @@ class RenderOutput(NamedTuple):
     visible: torch.Tensor      # [C] bool
     num_rendered: torch.Tensor  # scalar int32
     overflow: torch.Tensor     # scalar bool
-    n_contrib: torch.Tensor    # [H, W] int32 last-contributor position
+    n_contrib: Optional[torch.Tensor]  # [H, W] int32 last-contributor
+                                       # position; None on 'ref'
 
 
 def point_cloud_render(
@@ -123,8 +128,10 @@ def default_max_instances(capacity: int) -> int:
 
 def preprocess_scene(scene, camera: Camera, *, scale_modifier: float = 1.0,
                      override_color: Optional[torch.Tensor] = None,
-                     mean2d_offset_ndc: Optional[torch.Tensor] = None):
-    """`preprocess` of every slot of `scene` (dead slots stay invisible)."""
+                     mean2d_offset_ndc: Optional[torch.Tensor] = None,
+                     tile_row_range=None):
+    """`preprocess` of every slot of `scene` (dead slots stay invisible);
+    `tile_row_range` keeps a strip of tile rows (see `preprocess`)."""
     sh = None if override_color is not None else scene.get_features
     return preprocess(
         scene.xyz,
@@ -139,6 +146,7 @@ def preprocess_scene(scene, camera: Camera, *, scale_modifier: float = 1.0,
         scale_modifier=scale_modifier,
         override_color=override_color,
         mean2d_offset_ndc=mean2d_offset_ndc,
+        tile_row_range=tile_row_range,
     )
 
 
@@ -159,16 +167,12 @@ def render(
 
     impl: None or 'pallas' (sorted route; renders of more than 3 channels
     take the dense route), 'tiled' (the sorted route at the JAX 'tiled'
-    route's depth cut) or 'pallas4' (dense route).
+    route's depth cut), 'pallas4' (dense route) or 'ref' (the dense
+    oracle).
     max_instances: total tile-instance budget; exceeding it sets
     `overflow` (see `render_safe`). tile_cap, chunk: accepted and ignored
     (every tile is walked whole)."""
     if impl not in IMPLS:
-        if impl == "ref":
-            raise ValueError(
-                "render impl 'ref' is not ported yet: the JAX package's "
-                "dense oracle comes with the slice that needs it "
-                "(ROADMAP.md, queue A)")
         raise ValueError(f"render impl must be one of {IMPLS}, got {impl!r}")
     dev = scene.device
     camera = camera.to(dev)
@@ -182,6 +186,20 @@ def render(
     proc = preprocess_scene(scene, camera, scale_modifier=scale_modifier,
                             override_color=override_color,
                             mean2d_offset_ndc=mean2d_offset_ndc)
+
+    if impl == "ref":
+        color, depth, final_T = composite_dense(proc, H, W, bg)
+        return RenderOutput(
+            color=color,
+            depth=depth,
+            alpha=1.0 - final_T,
+            final_T=final_T,
+            radii=proc.radius,
+            visible=proc.visible,
+            num_rendered=torch.sum(proc.tiles_touched),
+            overflow=torch.zeros((), dtype=torch.bool, device=dev),
+            n_contrib=None,
+        )
 
     grid_x = (W + TILE - 1) // TILE
     grid_y = (H + TILE - 1) // TILE

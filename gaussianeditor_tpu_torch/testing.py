@@ -7,7 +7,10 @@ import the JAX test helpers can apply the same bounds. `adversarial_rows`
 and `dense_from_rows` make inputs for the backward kernels' tests, on the
 CPU and on the card. `watch_served_fit`, `whole_step_frames` and
 `whole_step_index` check that the web UI serves only whole steps of a
-fit.
+fit. `run_ranks` runs a function on spawned ranks of one process group
+(gloo on the CPU in the tests; two ranks sharing one card in
+`chip_smoke.py`), and `fingerprint` compares tensors across ranks
+without shipping them.
 """
 
 from __future__ import annotations
@@ -185,3 +188,106 @@ def whole_step_index(frame: np.ndarray, candidates) -> int:
         if np.array_equal(frame, c):
             return i
     return -1
+
+
+SPAWN_TIMEOUT = 600.0   # seconds for a whole spawn, start-up included
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _rank_entry(fn, rank, world, port, device, backend, timeout, args, q):
+    import traceback
+    from datetime import timedelta
+
+    try:
+        import torch.distributed as dist
+
+        from gaussianeditor_tpu_torch.parallel.mesh import (
+            initialize_distributed,
+        )
+
+        if str(device) == "cpu":
+            torch.set_num_threads(1)
+        initialize_distributed(f"127.0.0.1:{port}", world, rank, backend,
+                               device=device,
+                               timeout=timedelta(seconds=timeout))
+        try:
+            out = fn(rank, world, *args)
+        finally:
+            dist.destroy_process_group()
+        q.put((rank, out, None))
+    except BaseException:
+        q.put((rank, None, traceback.format_exc()))
+
+
+def run_ranks(fn, world: int, *args, device="cpu", backend=None,
+              timeout: float = SPAWN_TIMEOUT) -> list:
+    """[fn(0, world, *args), ..., fn(world - 1, world, *args)], each call
+    in its own spawned process, joined into one process group on a free
+    localhost port by `parallel.mesh.initialize_distributed(device=device,
+    backend=backend)` (on the CPU, one torch thread a rank). `fn` must be
+    importable by a fresh interpreter, and its results picklable. A rank
+    that raises ends the others at once, and every rank still running at
+    `timeout` seconds is killed: the call then raises, so a hung
+    collective fails instead of hanging its caller."""
+    import multiprocessing as mp
+    import queue
+    import time
+
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    port = _free_port()
+    procs = [ctx.Process(target=_rank_entry,
+                         args=(fn, r, world, port, device, backend, timeout,
+                               args, q), daemon=True)
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + timeout
+    results, error = {}, None
+    try:
+        while len(results) < world and error is None:
+            try:
+                rank, out, err = q.get(
+                    timeout=max(deadline - time.monotonic(), 0.1))
+            except queue.Empty:
+                missing = sorted(set(range(world)) - set(results))
+                error = f"ranks {missing} did not finish within {timeout} s"
+                break
+            if err is not None:
+                error = f"rank {rank} failed:\n{err}"
+            else:
+                results[rank] = out
+    finally:
+        for p in procs:
+            if error is not None:
+                p.kill()
+            p.join(timeout=max(deadline - time.monotonic(), 5.0))
+            if p.is_alive():
+                p.kill()
+                p.join()
+    if error is not None:
+        raise RuntimeError(error)
+    return [results[r] for r in range(world)]
+
+
+def fingerprint(tensors) -> torch.Tensor:
+    """Exact int64 sums of each 1024-element block of each float32
+    tensor's bit patterns, weighted by position in the block: equal
+    tensors give equal fingerprints, and any one changed element changes
+    its block's sum (|bits| < 2^31 and weights <= 1024, so a block's sum
+    stays below 2^52)."""
+    out = []
+    for t in tensors:
+        b = t.detach().reshape(-1).view(torch.int32).to(torch.int64)
+        b = torch.cat([b, b.new_zeros((-b.numel()) % 1024)]).view(-1, 1024)
+        w = torch.arange(1, 1025, dtype=torch.int64, device=b.device)
+        out.append((b * w).sum(dim=1))
+    return torch.cat(out)
+

@@ -3,7 +3,7 @@
 Counterpart of `gaussianeditor_tpu/train/losses.py` (L1, the 11x11
 Gaussian-window SSIM with C1 = 0.01^2, C2 = 0.03^2, PSNR). Images are
 channels-last, [..., H, W, C]. The SSIM map's halo-row mode (`rows=
-"VALID"`, for the JAX package's tile-sharded path) is not ported.
+"VALID"`) serves the strip-sharded SSIM of `parallel/halo.py`.
 
 SSIM's blurs are `F.conv2d`, run forward and backward in full float32
 with cuDNN's deterministic algorithms whatever the process-wide cuDNN
@@ -50,32 +50,52 @@ def _gaussian_window(size: int = 11, sigma: float = 1.5) -> np.ndarray:
 
 
 class _Blur(torch.autograd.Function):
-    """The separable Gaussian blur of [N, 1, H, W] with zero padding
-    ("SAME"), forward and backward under `exact_conv_flags`. The window
-    is symmetric, so the backward is the same blur of the cotangent."""
+    """The separable Gaussian blur of [N, 1, H, W], forward and backward
+    under `exact_conv_flags`. W always has zero padding ("SAME"); H has
+    zero padding under `rows="SAME"` and none under `rows="VALID"` (the
+    input carries window // 2 halo rows on each side, and the output is
+    that many rows shorter at each end). The window is symmetric, so the
+    backward is the same blur of the cotangent, with H padded by
+    window - 1 under "VALID" (the full correlation, which restores the
+    halo rows)."""
 
     @staticmethod
-    def forward(ctx, x, w):
+    def forward(ctx, x, w, rows):
         ctx.save_for_backward(w)
-        return _blur2d(x, w)
+        ctx.rows = rows
+        return _blur2d(x, w, rows)
 
     @staticmethod
     def backward(ctx, g):
         (w,) = ctx.saved_tensors
-        return _blur2d(g.contiguous(), w), None
+        back = "FULL" if ctx.rows == "VALID" else ctx.rows
+        return _blur2d(g.contiguous(), w, back), None, None
 
 
-def _blur2d(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    pad = w.shape[0] // 2
+_ROW_PAD = {"SAME": lambda k: k // 2, "VALID": lambda k: 0,
+            "FULL": lambda k: k - 1}
+
+
+def _blur2d(x: torch.Tensor, w: torch.Tensor, rows: str = "SAME"
+            ) -> torch.Tensor:
+    k = w.shape[0]
     with exact_conv_flags():
-        x = F.conv2d(x, w.view(1, 1, -1, 1), padding=(pad, 0))
-        return F.conv2d(x, w.view(1, 1, 1, -1), padding=(0, pad))
+        x = F.conv2d(x, w.view(1, 1, -1, 1), padding=(_ROW_PAD[rows](k), 0))
+        return F.conv2d(x, w.view(1, 1, 1, -1), padding=(0, k // 2))
 
 
 def ssim_map(img1: torch.Tensor, img2: torch.Tensor,
-             window_size: int = 11) -> torch.Tensor:
+             window_size: int = 11, rows: str = "SAME") -> torch.Tensor:
     """Per-pixel SSIM of an [H, W, C] or [B, H, W, C] pair: separable
-    Gaussian window, zero padding ("SAME")."""
+    Gaussian window, zero padding.
+
+    rows: the H axis's padding. "SAME" is the whole image's (zero
+    padding). "VALID": the inputs carry window_size // 2 rows of halo on
+    each side, already filled (`parallel/halo.py`), and the map comes
+    back without them, [B, H - window_size + 1, W, C]. W is always
+    "SAME"."""
+    if rows not in ("SAME", "VALID"):
+        raise ValueError(f"rows must be 'SAME' or 'VALID', got {rows!r}")
     if img1.dim() == 3:
         img1, img2 = img1[None], img2[None]
     w = torch.as_tensor(_gaussian_window(window_size), device=img1.device,
@@ -84,8 +104,8 @@ def ssim_map(img1: torch.Tensor, img2: torch.Tensor,
     def blur(x):
         b, h, wd, c = x.shape
         x = x.permute(0, 3, 1, 2).reshape(b * c, 1, h, wd)
-        x = _Blur.apply(x, w)
-        return x.reshape(b, c, h, wd).permute(0, 2, 3, 1)
+        x = _Blur.apply(x, w, rows)
+        return x.reshape(b, c, -1, wd).permute(0, 2, 3, 1)
 
     mu1, mu2 = blur(img1), blur(img2)
     mu1_sq, mu2_sq, mu12 = mu1 * mu1, mu2 * mu2, mu1 * mu2
