@@ -12,14 +12,17 @@ Phases, in order; any failure exits non-zero:
      scene (bench.py's recipe, seed 0) written to a PLY and loaded the way
      the viewer loads it, at 4x capacity; one 512x512 view, rendered both
      ways a served frame renders it: the color view (ch = 3) and the
-     overlay's mask view (ch = 1); B2's registers and spills are printed
-     first. Kernel B1's keys and sort order must equal its plain
-     version's bit for bit; kernel B2's images must meet the JAX suite's
-     image bounds and its n_contrib must equal the plain version's on
-     every pixel.
+     overlay's mask view (ch = 1); B1's and B2's registers, spills and
+     shared memory are printed first. Kernel B1's 32-bit keys, payload
+     and sort order must equal its plain version's bit for bit; kernel
+     B2's images must meet the JAX suite's image bounds and its n_contrib
+     must equal the plain version's on every pixel.
      Each kernel is timed with CUDA events (median of 20 samples), beside
      its plain version on the color view (1 sample for B2's, which
-     takes seconds a call).
+     takes seconds a call). On the color view `sorted_bin` is timed whole
+     and in its parts (the cumsum with its host read, B1, the sort, the
+     payload gather, the tile bounds), beside `torch.sort` of the same
+     keys as int64 and as int32, in turns.
   4. the main path: the viewer's state is built as its `main` builds it
      (the PLY plus a synthetic COLMAP workspace) and served over HTTP;
      GET /render answers two orbit views, one client pose, one overlay
@@ -153,7 +156,8 @@ Phases, in order; any failure exits non-zero:
      degree 3 with an alive count other than 150,000; the PSNR of the
      exported scene over 4 training views above the initial scene's; the
      turntable 16 frames. At training view 0 of the result, B1-B4 against
-     their plain versions as phases 3 and 6 hold them (timed there), and
+     their plain versions as phases 3 and 6 hold them (timed there, with
+     phase 3's split of `sorted_bin`), and
      B2's n_contrib against the plain version's at views 0, 12, 24 and
      36, a pixel that differs decided by replaying its walk: both counts
      must be the float64 walk's within one float32 tie (the count printed
@@ -382,10 +386,15 @@ def kernel_resources(name: str, channels) -> None:
     """Print each instance's registers, spills and static shared memory
     from the compiler's report (`_kernels.BUILD_LOG`), and the dynamic
     shared memory and blocks per SM of the instance taking each of
-    `channels`, from the kernel's `<name>_occupancy`."""
+    `channels`, from the kernel's `<name>_occupancy`. A block is the
+    source's kThreads threads where it defines one (B1), else 256 (a
+    pixel or a slot a thread)."""
     import re
 
     from gaussianeditor_tpu_torch.ops import _kernels
+    from gaussianeditor_tpu_torch.testing import kernel_constants
+
+    threads = kernel_constants(f"{name}.cu").get("kThreads", 256)
 
     inst = ""
     for line in _kernels.BUILD_LOG.get(name, "").splitlines():
@@ -398,7 +407,7 @@ def kernel_resources(name: str, channels) -> None:
     for ch in channels:
         smem, blocks = _kernels.occupancy(name, ch)
         print(f"  {name} at ch {ch}: {smem} bytes of dynamic shared memory, "
-              f"{blocks} blocks of 256 threads per SM", flush=True)
+              f"{blocks} blocks of {threads} threads per SM", flush=True)
 
 
 def row_stats(bounds, n_contrib, label: str, per: int = 1) -> dict:
@@ -509,12 +518,35 @@ def replay_nc_flips(sb, tk, tp, gx: int, label: str, limit: int = 64,
     return len(bad), unexplained
 
 
+def b1_bytes(b_incl, tiles_touched, n: int, ch: int,
+             key_bytes: int = 4) -> tuple:
+    """(bytes, slots, visible): what kernel B1 must move for ranks
+    [0, n) of this data. It reads b_incl up to the owner of rank n - 1
+    (the `slots` after it own no rank below n: at 4x capacity most of
+    them are a dead tail) and, of each `visible` slot among those, the
+    fields it cannot derive: rect_min, rect_max.x, mean2d, conic,
+    opacity, depth and color, 4 (10 + ch) bytes (tiles_touched is b_incl's
+    difference; rect_max.y follows from it). It writes a key of
+    `key_bytes` and 4 (7 + ch) payload bytes a rank."""
+    import torch
+
+    C = b_incl.shape[0]
+    last = torch.searchsorted(
+        b_incl, torch.tensor([n - 1], dtype=b_incl.dtype,
+                             device=b_incl.device), right=True)
+    slots = min(int(last[0]), C - 1) + 1
+    visible = int((tiles_touched[:slots] > 0).sum())
+    return (4 * slots + visible * 4 * (10 + ch)
+            + n * (key_bytes + 4 * (7 + ch)), slots, visible)
+
+
 def check_kernels(proc, gx: int, gy: int, budget: int, label: str,
                   time_plain: bool, replay_flips: bool = False,
-                  depth_bits=None) -> dict:
+                  depth_bits=None, split: bool = False) -> dict:
     """B1 and B2 on one view's preprocessed inputs, each against its plain
     version; returns their errors, times and bounds, and B2's plain tiles.
-    The plain versions are timed only when `time_plain` is set. B2's
+    The plain versions are timed only when `time_plain` is set; with
+    `split`, `sorted_bin` is timed in its parts (`sorted_bin_split`). B2's
     n_contrib must equal the plain version's on every pixel; with
     `replay_flips`, a pixel where they differ passes if that pixel's
     walk replayed on the card reproduces the plain version's, and both
@@ -527,6 +559,7 @@ def check_kernels(proc, gx: int, gy: int, budget: int, label: str,
         binning_key,
         binning_key_plain,
         key_depth_bits,
+        ranks_kept,
         sorted_bin,
     )
     from gaussianeditor_tpu_torch.ops.tile_composite import (
@@ -547,7 +580,7 @@ def check_kernels(proc, gx: int, gy: int, budget: int, label: str,
     # --- B1 ---
     b_incl = torch.cumsum(proc.tiles_touched, 0, dtype=torch.int32)
     total = int(b_incl[-1])
-    n = min(total, -(-budget // 128) * 128)
+    n = ranks_kept(total, budget)
     kdb = key_depth_bits(T) if depth_bits is None else depth_bits
     key_args = (b_incl, proc.tiles_touched, proc.rect_min, proc.rect_max,
                 proc.mean2d, proc.conic, proc.opacity, proc.depth,
@@ -562,25 +595,28 @@ def check_kernels(proc, gx: int, gy: int, budget: int, label: str,
     key_k, pay_k = b1()
     key_p, pay_p = b1_plain()
     torch.cuda.synchronize()
+    assert key_k.dtype == torch.int32, f"B1 {label}: key {key_k.dtype}"
     assert torch.equal(key_k, key_p), f"B1 {label}: keys differ from plain"
-    assert torch.equal(pay_k, pay_p), f"B1 {label}: payload differs"
+    assert torch.equal(pay_k.view(torch.int32), pay_p.view(torch.int32)), \
+        f"B1 {label}: payload differs"
     rank_k = torch.sort(key_k, stable=True)[1]
     rank_p = torch.sort(key_p, stable=True)[1]
     assert torch.equal(rank_k, rank_p), f"B1 {label}: sort order differs"
-    out["b1_err"] = float((key_k - key_p).abs().max())
+    out["b1_err"] = float((key_k.to(torch.int64) - key_p).abs().max())
     out["b1_ms"] = time_ms(b1)
     out["b1_plain_ms"] = time_ms(b1_plain) if time_plain else None
-    n_vis = int((proc.tiles_touched > 0).sum())
-    # bytes: b_incl once, each visible Gaussian's row (tiles_touched,
-    # rect min/max, mean2d, conic, opacity, depth, color), the int64 keys
-    # and the payload written
-    b1_bytes = 4 * C + n_vis * 4 * (1 + 4 + 2 + 3 + 1 + 1 + ch) + n * (8 + 4 * P)
-    out["b1_bound"] = 1e3 * b1_bytes / H100_BYTES_PER_S
+    b1_b, slots, n_vis = b1_bytes(b_incl, proc.tiles_touched, n, ch)
+    out["b1_bound"] = 1e3 * b1_b / H100_BYTES_PER_S
     print(f"B1 binning_key, {label} (ch {ch}): n={n} (num_rendered {total}, "
-          f"budget {budget}), visible {n_vis}/{C}; keys, payload and sort "
+          f"budget {budget}), visible {n_vis} of slots [0, {slots}) ({C} "
+          f"in all); keys, payload and sort "
           f"order bitwise equal; kernel {out['b1_ms']:.4f} ms, plain "
           f"{out['b1_plain_ms'] or float('nan'):.4f} ms, bound "
-          f"{out['b1_bound']:.4f} ms (bytes)", flush=True)
+          f"{out['b1_bound']:.4f} ms (bytes), "
+          f"{out['b1_bound'] / out['b1_ms']:.0%} of it", flush=True)
+    if split:
+        out["sorted_bin_split"] = sorted_bin_split(proc, gx, gy, budget, kdb,
+                                                   label)
 
     # --- B2 ---
     with torch.no_grad():
@@ -638,6 +674,59 @@ def check_kernels(proc, gx: int, gy: int, budget: int, label: str,
     return out
 
 
+def sorted_bin_split(proc, gx: int, gy: int, budget: int, kdb: int,
+                     label: str) -> dict:
+    """`sorted_bin` timed whole and in its parts, each by CUDA events
+    (`time_ms`): the cumsum with its host read, B1, the sort, the payload
+    gather and the tile bounds; beside them `torch.sort` of the same n
+    keys as int64 (unbiased) and as int32, in turns."""
+    import torch
+
+    from gaussianeditor_tpu_torch.ops.binning_sorted import (
+        KEY_BIAS,
+        binning_key,
+        ranks_kept,
+        sorted_bin,
+        tile_bounds_of,
+    )
+
+    T = gx * gy
+    tt = proc.tiles_touched
+
+    def host():
+        b = torch.cumsum(tt, 0, dtype=torch.int32)
+        return b, int(b[-1])
+
+    b_incl, total = host()
+    n = ranks_kept(total, budget)
+    key, payload = binning_key(proc, b_incl, n, total, gx, kdb)
+    skey, rank = torch.sort(key, stable=True)
+    key64 = key.to(torch.int64) + KEY_BIAS
+    with torch.no_grad():
+        ms = {
+            "whole": time_ms(lambda: sorted_bin(proc, gx, gy, budget,
+                                                depth_bits=kdb)),
+            "cumsum_host_read": time_ms(host),
+            "b1": time_ms(lambda: binning_key(proc, b_incl, n, total, gx,
+                                              kdb)),
+            "sort": time_ms(lambda: torch.sort(key, stable=True)),
+            "gather": time_ms(lambda: payload[:, rank]),
+            "tile_bounds": time_ms(lambda: tile_bounds_of(skey, T, kdb)),
+        }
+        # the two key widths in turns: int64, int32, int32, int64
+        t = [time_ms(lambda k=k: torch.sort(k, stable=True))
+             for k in (key64, key, key, key64)]
+    ms["sort_int64"], ms["sort_int32"] = [t[0], t[3]], [t[1], t[2]]
+    parts = ("cumsum_host_read", "b1", "sort", "gather", "tile_bounds")
+    print(f"sorted_bin split, {label}: n={n}, {T} tiles; whole "
+          f"{ms['whole']:.4f} ms = " + " + ".join(
+              f"{k} {ms[k]:.4f}" for k in parts)
+          + f" (sum {sum(ms[k] for k in parts):.4f}) ms; torch.sort of the "
+          f"{n} keys as int64 {t[0]:.4f} / {t[3]:.4f} ms, as int32 "
+          f"{t[1]:.4f} / {t[2]:.4f} ms", flush=True)
+    return ms
+
+
 def phase_kernels(scene, device) -> list:
     """Phase 3: each kernel against its plain version at full width, on
     both renders a served frame makes: the color view (ch = 3) and the
@@ -661,8 +750,10 @@ def phase_kernels(scene, device) -> list:
         # the overlay's second render (webui `_render`): the mask as color
         mask_proc = preprocess_scene(
             scene, cam, override_color=scene.mask[:, None].to(torch.float32))
+    kernel_resources("binning_key", (3,))
     kernel_resources("forward_tile", ())
-    main = check_kernels(color_proc, gx, gy, budget, "color view", True)
+    main = check_kernels(color_proc, gx, gy, budget, "color view", True,
+                         split=True)
     overlay = check_kernels(mask_proc, gx, gy, budget, "overlay mask view",
                             False)
     assert main["ch"] == 3 and overlay["ch"] == 1
@@ -677,7 +768,8 @@ def phase_kernels(scene, device) -> list:
              replaces="gaussianeditor_tpu/ops/binning_sorted.py:150",
              max_abs_err=max(main["b1_err"], overlay["b1_err"]),
              ms=main["b1_ms"], plain_ms=main["b1_plain_ms"],
-             bound_ms=main["b1_bound"], bound_by="bytes", library_ms=None),
+             bound_ms=main["b1_bound"], bound_by="bytes", library_ms=None,
+             sorted_bin_split=main["sorted_bin_split"]),
         dict(name="B2 forward_tile", route="cuda",
              source="gaussianeditor_tpu_torch/csrc/forward_tile.cu",
              replaces="gaussianeditor_tpu/ops/pallas_composite.py:599",
@@ -2656,14 +2748,15 @@ def recon_view_kernels(scene, cams, cap: int) -> dict:
     with torch.no_grad():
         proc = preprocess_scene(scene, cam)
     kv = check_kernels(proc, gx, gy, budget, f"recon view {w}x{h}", False,
-                       replay_flips=True)
+                       replay_flips=True, split=True)
     view = dict(proc=proc, sb=kv["sb"], tiles=kv["tiles"],
                 contrib=kv["contrib"], gx=gx, gy=gy, budget=budget)
     kv_replayed = kv["nc_replayed"]
     rows_bw = phase_backward(view, time_plain=False)
     out = {
         "B1 binning_key": dict(ms=kv["b1_ms"], bound_ms=kv["b1_bound"],
-                               bound_by="bytes", max_abs_err=kv["b1_err"]),
+                               bound_by="bytes", max_abs_err=kv["b1_err"],
+                               sorted_bin_split=kv["sorted_bin_split"]),
         "B2 forward_tile": dict(ms=kv["b2_ms"], bound_ms=kv["b2_bound"],
                                 bound_by=kv["b2_by"],
                                 max_abs_err=kv["b2_err"]),

@@ -165,7 +165,7 @@ def launch(name: str, device: torch.device, *args) -> None:
 def occupancy(name: str, ch: int) -> Tuple[int, int]:
     """(dynamic shared memory in bytes, blocks per SM) of the instance of
     kernel `name` that takes `ch` channels, from its C function
-    `<name>_occupancy` (B3, B4, B5 and B6 export one)."""
+    `<name>_occupancy` (B1 and B3-B6 export one)."""
     fn = getattr(_load(name), f"{name}_occupancy")
     fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int),
                    ctypes.POINTER(ctypes.c_int)]

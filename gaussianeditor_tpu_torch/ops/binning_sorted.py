@@ -10,8 +10,11 @@ payload; `torch.sort(stable=True)` orders the ranks (it stands in for
 and `torch.searchsorted` gives the first sorted row of every tile.
 
 Differences from the JAX route, none of which changes an output:
-  * Keys are int64, with 2^32 - 1 for a dead rank; they sort exactly as
-    the JAX uint32 keys do.
+  * Keys are the JAX uint32 keys biased by 2^31 (their top bit flipped)
+    and stored as int32, since torch sorts no uint32: signed order on
+    the biased keys is unsigned order on the JAX keys, a dead rank's
+    2^32 - 1 becomes INT32_MAX and still sorts last, and the sort takes
+    the passes of a 32-bit key, not a 64-bit one.
   * Integers stay integers. The JAX route carries them through f32 and so
     caps the budget at 2^24; here every budget takes this route.
   * Buffers hold min(num_rendered, R) ranks, after one host read of
@@ -47,7 +50,9 @@ from gaussianeditor_tpu_torch.ops import _kernels
 from gaussianeditor_tpu_torch.ops.preprocess import ProcessedGaussians
 
 CHUNK = 128  # the budget rounds to a multiple of this, as in the JAX route
-DEAD_KEY = 0xFFFFFFFF
+DEAD_KEY = 0xFFFFFFFF               # a dead rank's unbiased 32-bit key
+KEY_BIAS = 1 << 31                  # B1's int32 key: the JAX key - 2^31
+DEAD_KEY_BIASED = DEAD_KEY - KEY_BIAS   # INT32_MAX
 
 
 def _round_up(x: int, m: int) -> int:
@@ -91,7 +96,9 @@ def binning_key_plain(b_incl, tiles_touched, rect_min, rect_max, mean2d,
                       conic, opacity, depth, color, n: int, total: int,
                       grid_x: int, depth_bits: int
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain torch version of kernel B1: (key [n] int64, payload [7+ch, n])."""
+    """Plain torch version of kernel B1: (key [n] int32, payload [7+ch, n]),
+    the key biased: the JAX uint32 key (DEAD_KEY for a dead rank) minus
+    KEY_BIAS."""
     dev = b_incl.device
     C = b_incl.shape[0]
     q = torch.arange(n, dtype=torch.int32, device=dev)
@@ -109,6 +116,8 @@ def binning_key_plain(b_incl, tiles_touched, rect_min, rect_max, mean2d,
     dk = (dg.view(torch.int32).to(torch.int64) & 0xFFFFFFFF) >> (32 - depth_bits)
     key = torch.where(live, (tile << depth_bits) | dk,
                       torch.full_like(tile, DEAD_KEY))
+    # the low 32 bits, as the kernel's unsigned arithmetic keeps them
+    key = ((key & DEAD_KEY) - KEY_BIAS).to(torch.int32)
     payload = torch.cat([mean2d[g].T, conic[g].T, opacity[g][None], dg[None],
                          color[g].T], dim=0)
     return key, payload
@@ -126,7 +135,7 @@ def binning_key(proc: ProcessedGaussians, b_incl: torch.Tensor, n: int,
         raise ValueError(f"binning_key: unsupported device {dev}")
     C = b_incl.shape[0]
     ch = proc.color.shape[-1]
-    key = torch.empty((n,), dtype=torch.int64, device=dev)
+    key = torch.empty((n,), dtype=torch.int32, device=dev)
     payload = torch.empty((7 + ch, n), dtype=torch.float32, device=dev)
     if n == 0:
         return key, payload
@@ -146,6 +155,25 @@ def binning_key(proc: ProcessedGaussians, b_incl: torch.Tensor, n: int,
     _kernels.launch("binning_key", dev, *args, C, ch, n, total, grid_x,
                     depth_bits, key, payload)
     return key, payload
+
+
+def ranks_kept(total: int, max_instances: int) -> int:
+    """The ranks `sorted_bin` keys, sorts and keeps: num_rendered, at most
+    the budget rounded up to CHUNK."""
+    return min(total, _round_up(max_instances, CHUNK))
+
+
+def tile_bounds_of(skey: torch.Tensor, num_tiles: int, depth_bits: int
+                   ) -> torch.Tensor:
+    """[num_tiles + 1] int32: the first row of each tile in the sorted
+    biased keys `skey`, and the count of live rows last. Tile t's keys
+    start at the biased boundary (t << depth_bits) - KEY_BIAS, which lies
+    in int32 below DEAD_KEY_BIASED for t <= num_tiles (since num_tiles + 1
+    < 2^(32 - depth_bits)); one int32 arange makes them."""
+    step = 1 << depth_bits
+    edges = torch.arange(-KEY_BIAS, (num_tiles + 1) * step - KEY_BIAS, step,
+                         dtype=torch.int32, device=skey.device)
+    return torch.searchsorted(skey, edges, side="left", out_int32=True)
 
 
 def sorted_bin(proc: ProcessedGaussians, grid_x: int, grid_y: int,
@@ -168,15 +196,12 @@ def sorted_bin(proc: ProcessedGaussians, grid_x: int, grid_y: int,
 
     b_incl = torch.cumsum(proc.tiles_touched, 0, dtype=torch.int32)
     total = int(b_incl[-1]) if C > 0 else 0   # the one host read
-    n = min(total, R)
+    n = ranks_kept(total, max_instances)
     key, payload = binning_key(proc, b_incl, n, total, grid_x, kdb)
 
     skey, rank = torch.sort(key, stable=True)
     payload = payload[:, rank]
-    stile = skey >> kdb
-    bounds = torch.searchsorted(
-        stile, torch.arange(num_tiles + 1, dtype=torch.int64, device=dev),
-        side="left").to(torch.int32)
+    bounds = tile_bounds_of(skey, num_tiles, kdb)
     return SortedBinning(
         payload=payload,
         rank=rank,

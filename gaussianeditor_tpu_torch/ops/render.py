@@ -26,9 +26,10 @@ Four routes, chosen by `impl` as in the JAX package:
     32 - tile_bits bits too.
 On CPU tensors each kernel's plain version runs instead. The JAX
 package also sends budgets above 2^24 to 'pallas4', because its sorted
-route carries ints through f32; here ints stay int32 and int64 keys, so
-every budget takes the route `impl` names. `tile_cap` and `chunk` (the
-JAX scan compositor's knobs) are accepted on every route and ignored.
+route carries ints through f32; here ints stay int32 and the keys
+32-bit integers, so every budget takes the route `impl` names.
+`tile_cap` and `chunk` (the JAX scan compositor's knobs) are accepted on
+every route and ignored.
   * 'ref': the dense oracle (`ops/refimpl.py::composite_dense`), plain
     torch in the scene's dtype, O(P x H x W): for tests and small scenes.
     No binning and no kernel; `num_rendered` is the sum of

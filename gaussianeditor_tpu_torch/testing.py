@@ -5,8 +5,9 @@
 (the JAX suite's image tolerance), kept here so that code which must not
 import the JAX test helpers can apply the same bounds. `adversarial_rows`
 and `dense_from_rows` make inputs for the backward kernels' tests, on the
-CPU and on the card. `watch_served_fit`, `whole_step_frames` and
-`whole_step_index` check that the web UI serves only whole steps of a
+CPU and on the card, and `key_layouts` for kernel B1's;
+`kernel_constants` reads a kernel source's constants. `watch_served_fit`,
+`whole_step_frames` and `whole_step_index` check that the web UI serves only whole steps of a
 fit. `run_ranks` runs a function on spawned ranks of one process group
 (gloo on the CPU in the tests; two ranks sharing one card in
 `chip_smoke.py`), and `fingerprint` compares tensors across ranks
@@ -14,6 +15,8 @@ without shipping them.
 """
 
 from __future__ import annotations
+
+import re
 
 import numpy as np
 import torch
@@ -82,6 +85,89 @@ def adversarial_rows(seed, ch, gx=4, gy=3, device="cpu"):
     start = np.concatenate([[0], np.cumsum(cnt)[:-1]])
     return (torch.from_numpy(start).to(device),
             torch.from_numpy(cnt).to(device), payload, gx)
+
+
+def kernel_constants(source: str) -> dict:
+    """The namespace-scope `constexpr int` constants of `csrc/<source>`,
+    each expression evaluated over the constants before it (so a
+    constant defined from others, such as B1's kRanks, is its value)."""
+    from gaussianeditor_tpu_torch.ops._kernels import CSRC_DIR
+
+    out = {}
+    for name, expr in re.findall(r"^constexpr int (\w+) = ([^;]+);",
+                                 (CSRC_DIR / source).read_text(), re.M):
+        out[name] = int(eval(expr, {}, dict(out)))
+    return out
+
+
+def key_layouts(device="cpu") -> list:
+    """Inputs of kernel B1 built to break a windowed owner search, each
+    (name, proc, grid_x, grid_y, n, total, depth_bits): a run of dead slots
+    (tiles_touched 0) longer than a block's window; one Gaussian whose
+    ranks span several blocks; n below total, above it (ranks past
+    b_incl[C - 1] belong to the last slot, here a dead one), and not a
+    multiple of 4; grids whose live keys set bit 31 (16 x 12 tiles at 24
+    depth bits, 82 x 53 at 19); a single slot; 1, 2 and 3 channels. The
+    fields B1 does not read are empty."""
+    from gaussianeditor_tpu_torch.ops.preprocess import ProcessedGaussians
+
+    def layout(seed, gx, gy, wh, ch):
+        """Slots with rects of the given (w, h) (0 for a dead slot) at
+        random places inside the grid."""
+        rng = np.random.RandomState(seed)
+        C = len(wh)
+        w = np.array([a for a, _ in wh], np.int32)
+        h = np.array([b for _, b in wh], np.int32)
+        rx = (rng.rand(C) * (gx - w + 1)).astype(np.int32)
+        ry = (rng.rand(C) * (gy - h + 1)).astype(np.int32)
+        f32 = np.float32
+        t = lambda a: torch.as_tensor(a).to(device)  # noqa: E731
+        return ProcessedGaussians(
+            mean2d=t(rng.uniform(-50, 900, (C, 2)).astype(f32)),
+            depth=t(rng.uniform(0.2, 100.0, C).astype(f32)),
+            conic=t(rng.uniform(-1, 1, (C, 3)).astype(f32)),
+            color=t(rng.rand(C, ch).astype(f32)),
+            opacity=t(rng.rand(C).astype(f32)),
+            radius=t(np.zeros(0, np.int32)),
+            visible=t(np.zeros(0, bool)),
+            rect_min=t(np.stack([rx, ry], 1)),
+            rect_max=t(np.stack([rx + w, ry + h], 1)),
+            tiles_touched=t(w * h))
+
+    def small(rng, k, dead=0.0, top=3):
+        return [(0, 0) if rng.rand() < dead else
+                (rng.randint(1, top + 1), rng.randint(1, top + 1))
+                for _ in range(k)]
+
+    def total_of(proc):
+        return int(proc.tiles_touched.sum())
+
+    rng = np.random.RandomState(7)
+    out = []
+    # 3,000 small slots, 5,000 dead ones, 4,000 small ones
+    wh = small(rng, 3000) + [(0, 0)] * 5000 + small(rng, 4000)
+    p = layout(1, 32, 32, wh, 3)
+    out.append(("dead run", p, 32, 32, total_of(p), total_of(p), 21))
+    # one 60 x 50 rect among small slots, half of them dead: 3,000 ranks
+    wh = small(rng, 900, dead=0.5) + [(60, 50)] + small(rng, 1100, dead=0.5)
+    p = layout(2, 82, 53, wh, 2)
+    out.append(("long Gaussian, n < total", p, 82, 53, total_of(p) - 1027,
+                total_of(p), 19))
+    # live slots, then three quarters of the slots dead capacity; n past
+    # total
+    wh = small(rng, 750, dead=0.3, top=4) + [(0, 0)] * 2250
+    p = layout(3, 16, 12, wh, 3)
+    out.append(("dead tail, n > total", p, 16, 12, total_of(p) + 37,
+                total_of(p), 24))
+    # n half of total, not a multiple of 4
+    wh = small(rng, 5000, dead=0.75, top=5)
+    p = layout(4, 82, 53, wh, 1)
+    out.append(("n half of total", p, 82, 53, total_of(p) // 2 | 1,
+                total_of(p), 19))
+    # a single slot of 7 tiles
+    p = layout(5, 9, 1, [(7, 1)], 1)
+    out.append(("one slot", p, 9, 1, 10, 7, 27))
+    return out
 
 
 def dense_from_rows(start, cnt, payload):

@@ -45,6 +45,7 @@ from gaussianeditor_tpu_torch.testing import (
     assert_images_close,
     dense_from_rows,
     fraction_equal,
+    key_layouts,
 )
 
 pytestmark = pytest.mark.cuda
@@ -109,8 +110,36 @@ def test_binning_key_kernel_matches_plain(cuda, budget):
         proc.mean2d, proc.conic, proc.opacity, proc.depth, proc.color, n,
         total, gx, kdb)
     torch.cuda.synchronize()
+    assert key.dtype == torch.int32
     assert torch.equal(key, want_key)
     assert torch.equal(payload, want_payload)
+
+
+@pytest.mark.parametrize("index", range(5))
+def test_binning_key_kernel_on_adversarial_layouts(cuda, index):
+    """B1 bitwise against its plain version on `key_layouts`: a dead run
+    longer than a block's window, a Gaussian over several blocks, n below
+    and above total and not a multiple of 4, keys with bit 31, C = 1; and
+    `sorted_bin` on the card bitwise the CPU's (sort order, payload, tile
+    bounds)."""
+    name, p, gx, gy, n, total, db = key_layouts(device=cuda)[index]
+    b_incl = torch.cumsum(p.tiles_touched, 0, dtype=torch.int32)
+    key, payload = binning_key(p, b_incl, n, total, gx, db)
+    want_key, want_payload = binning_key_plain(
+        b_incl, p.tiles_touched, p.rect_min, p.rect_max, p.mean2d, p.conic,
+        p.opacity, p.depth, p.color, n, total, gx, db)
+    torch.cuda.synchronize()
+    assert key.dtype == torch.int32
+    assert torch.equal(key, want_key), name
+    assert torch.equal(payload.view(torch.int32),
+                       want_payload.view(torch.int32)), name
+    got = sorted_bin(p, gx, gy, n, depth_bits=db)
+    cpu = type(p)(*(t.cpu() for t in p))
+    want = sorted_bin(cpu, gx, gy, n, depth_bits=db)
+    for f in ("rank", "tile_bounds", "num_rendered", "overflow"):
+        assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), (name, f)
+    assert torch.equal(got.payload.cpu().view(torch.int32),
+                       want.payload.view(torch.int32)), name
 
 
 @pytest.mark.parametrize("ch", [1, 2, 3])

@@ -30,6 +30,7 @@ from gaussianeditor_tpu.ops.preprocess import preprocess as jpreprocess
 from gaussianeditor_tpu_torch.edit import tracing
 from gaussianeditor_tpu_torch.ops import apply_weights as aw
 from gaussianeditor_tpu_torch.ops.binning_sorted import (
+    DEAD_KEY_BIASED,
     binning_key_plain,
     rank_segment_sum_plain,
     sorted_bin,
@@ -77,14 +78,16 @@ def test_sorted_bin_with_tracing_cut_matches_bin_and_sort(size):
                                   np.asarray(jb.tile_start))
     np.testing.assert_array_equal(sb.tile_bounds[1:].numpy(),
                                   np.asarray(jb.tile_end))
-    # the key's plain version at this cut: a dead rank sorts last, and the
-    # live keys are the JAX uint32 keys
+    # the key's plain version at this cut, biased int32: a dead rank's key
+    # is INT32_MAX and sorts after every live one
     pp = port_proc(jp)
     key, _ = binning_key_plain(sb.b_incl, pp.tiles_touched, pp.rect_min,
                                pp.rect_max, pp.mean2d, pp.conic, pp.opacity,
                                pp.depth, pp.color, nr + 5, nr, gx,
                                32 - tile_bits)
-    assert int(key[:nr].max()) < 2 ** 32 - 1 and (key[nr:] == 2 ** 32 - 1).all()
+    assert key.dtype == torch.int32
+    assert int(key[:nr].max()) < DEAD_KEY_BIASED
+    assert (key[nr:] == DEAD_KEY_BIASED).all()
 
 
 def _mask(kind, H, W, ch, seed):
