@@ -6,7 +6,7 @@ Counterpart of `gaussianeditor_tpu/apps/launch.py` (`build_guidance`,
 
     python -m gaussianeditor_tpu_torch.apps.launch --config cfg.yaml \
         [--train] [--validate] [--test] [--export] [--resume STATE.npz] \
-        [--gradio] [key.path=value ...]
+        [--gradio] [--trace-out TRACE.json] [key.path=value ...]
 
 The config is the JAX CLI's (see its module docstring), with one more
 key, `device` (default "cuda"): where the scene, the cameras and the
@@ -19,7 +19,10 @@ Each run writes a trial directory `<output_dir>/<YYYYmmdd-HHMMSS>/`:
 `turntable.gif`). The run ends by printing the wall time of its parts
 in ms (set-up, training, validation, export, the turntable's renders and
 its write) as a `timings: {...}` JSON line, and the process's launches
-of each hand-written kernel as a `launches: {...}` line.
+of each hand-written kernel as a `launches: {...}` line. `--trace-out`
+records the program's spans for the run (`utils/profiling.py`; each of
+those parts is one) and writes them with its counters as Chrome-trace
+JSON.
 
 Guidance, segmentation and inpainting take the fakes of
 `guidance/fake.py` ('fake') or the diffusion adapters of
@@ -47,7 +50,12 @@ import torch
 from gaussianeditor_tpu_torch import resolve_device
 from gaussianeditor_tpu_torch.config.config import load_config, parse_structured
 from gaussianeditor_tpu_torch.ops import _kernels
-from gaussianeditor_tpu_torch.utils.profiling import StepTimer
+from gaussianeditor_tpu_torch.utils.profiling import (
+    StepTimer,
+    span,
+    tracing,
+    write_trace,
+)
 
 def build_guidance(name: str, cfg: dict):
     """The JAX CLI's guidance by name: 'fake', 'ip2p' or
@@ -235,8 +243,9 @@ def _load_posed_images(img_dir: str, scene_cams) -> list:
 
 @contextlib.contextmanager
 def _timed(timer: StepTimer, name: str, device: torch.device):
-    """`timer.phase(name)`, the device synchronised before it ends."""
-    with timer.phase(name):
+    """`timer.phase(name)` and span `name`, the device synchronised
+    before they end."""
+    with timer.phase(name), span(name):
         yield
         if device.type == "cuda":
             torch.cuda.synchronize(device)
@@ -401,6 +410,10 @@ def main(argv=None) -> None:
                         help="headless-frontend mode: logs to <trial>/logs, "
                              "progress to <trial>/progress, and the scene "
                              "is exported after training")
+    parser.add_argument("--trace-out", default="",
+                        help="record the program's spans and write them, "
+                             "with its counters, to this Chrome-trace "
+                             "JSON file at the end")
     parser.add_argument("overrides", nargs="*", help="key.path=value")
     args = parser.parse_args(argv)
 
@@ -419,9 +432,14 @@ def main(argv=None) -> None:
         log_handler.setLevel(logging.INFO)
         logging.getLogger().addHandler(log_handler)
         args.export = args.export or args.train
+    if args.trace_out:
+        tracing(True)
     try:
         _run(args, cfg, mode, device, trial_dir)
     finally:
+        if args.trace_out:
+            tracing(False)
+            write_trace(args.trace_out)
         if log_handler is not None:
             logging.getLogger().removeHandler(log_handler)
             log_handler.close()

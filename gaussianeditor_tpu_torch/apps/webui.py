@@ -46,6 +46,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import io
+import itertools
 import json
 import threading
 import traceback
@@ -56,6 +57,8 @@ from urllib.parse import parse_qs, urlparse
 
 import numpy as np
 import torch
+
+from gaussianeditor_tpu_torch.utils.profiling import span, sync
 
 _PAGE = """<!DOCTYPE html>
 <html><head><title>gaussianeditor_tpu_torch</title><style>
@@ -196,7 +199,9 @@ def scene_image(scene, cam, overlay: bool = False,
             sel = (m > 0.8)[..., None]
             red = torch.tensor([1.0, 0.0, 0.0], device=dev)
             color = torch.where(sel, 0.5 * color + 0.5 * red, color)
-        return torch.clamp(color, 0.0, 1.0).cpu().numpy()
+        color = torch.clamp(color, 0.0, 1.0)
+        with sync("frame", color.numel() * color.element_size()):
+            return color.cpu().numpy()
 
 
 def _scene_tensors(scene):
@@ -286,8 +291,13 @@ class WebUIState:
             cam = lookat_camera(self._orbit_eye(theta, phi, radius),
                                 self.center, np.array([0.0, 1.0, 0.0]),
                                 fovx, fovy, size, size, device=dev)
-        with self.lock:
-            return self._render(cam, overlay)
+        with span("webui.lock_wait"):
+            self.lock.acquire()
+        try:
+            with span("webui.render"):
+                return self._render(cam, overlay)
+        finally:
+            self.lock.release()
 
     def render_frame(self, theta: float, phi: float, radius: float,
                      size: int, overlay: bool, pose=None, fovx: float = 0.8,
@@ -295,7 +305,8 @@ class WebUIState:
         """`render_image` as PNG bytes."""
         img = self.render_image(theta, phi, radius, size, overlay, pose=pose,
                                 fovx=fovx, fovy=fovy)
-        return encode_png((np.clip(img, 0, 1) * 255).astype(np.uint8))
+        with span("webui.png"):
+            return encode_png((np.clip(img, 0, 1) * 255).astype(np.uint8))
 
     # --- semantic tracing and groups ---
 
@@ -527,7 +538,7 @@ class WebUIState:
 
     def _fit_callbacks(self):
         def cb(step, metrics):
-            with self.lock:
+            with self.lock, sync("metrics", 12):
                 self.last_metrics = {
                     "step": int(step),
                     "loss": float(metrics["loss"]),
@@ -544,8 +555,9 @@ class WebUIState:
         cb, stop = self._fit_callbacks()
 
         def cb_sync(step, metrics):
-            cb(step, metrics)
-            self._publish(system.state.scene)
+            with span("webui.publish"):
+                cb(step, metrics)
+                self._publish(system.state.scene)
 
         system.fit(callback=cb_sync, should_stop=stop)
         with self.lock:
@@ -633,6 +645,8 @@ class WebUIState:
 
 
 def make_handler(state: WebUIState):
+    frames = itertools.count()      # the request id of each /render
+
     class Handler(BaseHTTPRequestHandler):
         def log_message(self, *args):  # quiet
             pass
@@ -660,17 +674,18 @@ def make_handler(state: WebUIState):
                         return self._json(
                             {"error": "pose must be 16 floats (c2w)"}, 400)
                     pose = vals
-                png = state.render_frame(
-                    float(q.get("theta", [0.6])[0]),
-                    float(q.get("phi", [0.3])[0]),
-                    float(q.get("radius", [4.0])[0]),
-                    int(q.get("size", [512])[0]),
-                    q.get("overlay", ["0"])[0] == "1",
-                    pose=pose,
-                    fovx=float(q.get("fovx", [0.8])[0]),
-                    fovy=float(q.get("fovy", [0.8])[0]),
-                )
-                self._send(png, "image/png")
+                with span("webui.frame", rid=next(frames)):
+                    png = state.render_frame(
+                        float(q.get("theta", [0.6])[0]),
+                        float(q.get("phi", [0.3])[0]),
+                        float(q.get("radius", [4.0])[0]),
+                        int(q.get("size", [512])[0]),
+                        q.get("overlay", ["0"])[0] == "1",
+                        pose=pose,
+                        fovx=float(q.get("fovx", [0.8])[0]),
+                        fovy=float(q.get("fovy", [0.8])[0]),
+                    )
+                    self._send(png, "image/png")
             elif url.path == "/status":
                 self._json({"training": state.training, **state.last_metrics})
             elif url.path == "/config":

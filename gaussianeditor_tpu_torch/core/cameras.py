@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from gaussianeditor_tpu_torch import resolve_device
+from gaussianeditor_tpu_torch.utils.profiling import sync
 
 
 def fov2focal(fov: float, pixels: float) -> float:
@@ -143,12 +144,14 @@ class Camera:
         def f32(x):
             return torch.as_tensor(np.asarray(x, np.float32), device=device)
 
+        # five host copies to the device: the first waits for the stream
+        with sync("camera"):
+            fields = dict(world_view=f32(world_view),
+                          full_proj=f32(full_proj), cam_pos=f32(cam_pos),
+                          tan_fovx=f32(math.tan(fovx / 2.0)),
+                          tan_fovy=f32(math.tan(fovy / 2.0)))
         return cls(
-            world_view=f32(world_view),
-            full_proj=f32(full_proj),
-            cam_pos=f32(cam_pos),
-            tan_fovx=f32(math.tan(fovx / 2.0)),
-            tan_fovy=f32(math.tan(fovy / 2.0)),
+            **fields,
             height=int(height),
             width=int(width),
         )

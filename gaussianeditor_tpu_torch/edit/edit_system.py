@@ -58,6 +58,7 @@ from gaussianeditor_tpu_torch.train.trainer import (
     make_train_step,
     upload_images,
 )
+from gaussianeditor_tpu_torch.utils.profiling import span, sync
 
 _WEIGHT_FIELDS = ("lambda_l1", "lambda_p", "lambda_anchor_color",
                   "lambda_anchor_geo", "lambda_anchor_scale",
@@ -392,7 +393,9 @@ class EditSystem:
     def _gen_target(self, current: torch.Tensor, origin: np.ndarray):
         # `current` is left on the device: on the async path its copy to
         # the host happens on the guidance worker, not in the train loop
-        out = self.guidance(current.cpu().numpy(), origin, self.cfg.prompt)
+        with sync("target", current.numel() * current.element_size()):
+            current = current.cpu().numpy()
+        out = self.guidance(current, origin, self.cfg.prompt)
         return np.asarray(out.edit_image, np.float32)
 
     def _refresh_targets(self, view_ids: List[int], step: int) -> None:
@@ -488,16 +491,39 @@ class EditSystem:
         while step < end:
             if should_stop is not None and should_stop():
                 break
-            bs = self._apply_resolution(step)
-            view_ids = self.sampler.sample(bs)
+            with span("edit.step", rid=step):
+                metrics = self._step(step, callback, densify_noise)
+            # accumulated on the device; read once after the loop
+            overflow_any = (metrics["overflow"] if overflow_any is None
+                            else overflow_any | metrics["overflow"])
+            step += 1
+        if overflow_any is not None:
+            with sync("overflow", 1):
+                overflowed = bool(overflow_any)
+            if overflowed:
+                warnings.warn(
+                    "render instance budget overflowed during training — "
+                    "splats were dropped on at least one step; rebuild "
+                    "the system with a larger max_instances"
+                )
+        self.scene = copy.deepcopy(self.state.scene)
+        return self.state
+
+    def _step(self, step: int, callback, densify_noise) -> dict:
+        """One step of `fit`: targets, the train step, densify at its
+        interval, the callback and a checkpoint at its interval."""
+        bs = self._apply_resolution(step)
+        view_ids = self.sampler.sample(bs)
+        with span("edit.targets"):
             self._refresh_targets(view_ids, step)
             targets = upload_images(
                 np.stack([self.edit_frames[v] for v in view_ids]),
                 self.state.scene.device)
-            w = self.cfg.loss
-            weights_t = type(w)(**{f: C(getattr(w, f), step)
-                                   for f in _WEIGHT_FIELDS})
-            cams = [self.cameras[v] for v in view_ids]
+        w = self.cfg.loss
+        weights_t = type(w)(**{f: C(getattr(w, f), step)
+                               for f in _WEIGHT_FIELDS})
+        cams = [self.cameras[v] for v in view_ids]
+        with span("train.step"):
             if self._with_inject:
                 inject = self._score_inject(view_ids, step)
                 self.state, metrics = self.train_step(
@@ -505,33 +531,24 @@ class EditSystem:
             else:
                 self.state, metrics = self.train_step(
                     self.state, cams, targets, weights_t)
-            if (step < self.cfg.densify_until_step and step > 0
-                    and step % self.cfg.densification_interval == 0):
+        if (step < self.cfg.densify_until_step and step > 0
+                and step % self.cfg.densification_interval == 0):
+            with span("train.densify"):
                 if densify_noise is not None:
                     self.state, dinfo = self.densify_step(
                         self.state, noise=densify_noise(step))
                 else:
                     self.state, dinfo = self.densify_step(
                         self.state, generator=self.generator)
-                metrics = {**metrics, **dinfo}
-            if callback is not None:
+            metrics = {**metrics, **dinfo}
+        if callback is not None:
+            with span("edit.callback"):
                 callback(step, metrics)
-            if (self.cfg.checkpoint_every > 0 and self.cfg.checkpoint_dir
-                    and (step + 1) % self.cfg.checkpoint_every == 0):
-                save_train_state(
-                    os.path.join(self.cfg.checkpoint_dir,
-                                 f"state_{step + 1:06d}.npz"),
-                    self.state,
-                )
-            # accumulated on the device; read once after the loop
-            overflow_any = (metrics["overflow"] if overflow_any is None
-                            else overflow_any | metrics["overflow"])
-            step += 1
-        if overflow_any is not None and bool(overflow_any):
-            warnings.warn(
-                "render instance budget overflowed during training — "
-                "splats were dropped on at least one step; rebuild the "
-                "system with a larger max_instances"
+        if (self.cfg.checkpoint_every > 0 and self.cfg.checkpoint_dir
+                and (step + 1) % self.cfg.checkpoint_every == 0):
+            save_train_state(
+                os.path.join(self.cfg.checkpoint_dir,
+                             f"state_{step + 1:06d}.npz"),
+                self.state,
             )
-        self.scene = copy.deepcopy(self.state.scene)
-        return self.state
+        return metrics

@@ -46,6 +46,7 @@ from gaussianeditor_tpu_torch.ops.binning_sorted import (
     tiled_depth_bits,
 )
 from gaussianeditor_tpu_torch.ops.preprocess import ProcessedGaussians
+from gaussianeditor_tpu_torch.utils.profiling import sync
 
 CHUNK = 128
 
@@ -95,7 +96,8 @@ def dense_bin(proc: ProcessedGaussians, grid_x: int, grid_y: int,
 
     tt = proc.tiles_touched
     b_incl = torch.cumsum(tt, 0, dtype=torch.int32)
-    total = int(b_incl[-1]) if C > 0 else 0   # the one host read
+    with sync("num_rendered", 4):      # the one host read
+        total = int(b_incl[-1]) if C > 0 else 0
     R_eff = max(_round_up(min(total, R), CHUNK), CHUNK)
     NC = R_eff // CHUNK + T + 1
 
@@ -155,6 +157,9 @@ def dense_bin(proc: ProcessedGaussians, grid_x: int, grid_y: int,
     a_by_rank[srank] = a
 
     i32 = torch.int32
+    with sync("bin_scalars"):
+        num_rendered = torch.tensor(total, dtype=i32, device=dev)
+        overflow = torch.tensor(total > R, device=dev)
     return DenseBinning(
         sorted_g=sorted_g,
         a_by_rank=a_by_rank,
@@ -165,8 +170,8 @@ def dense_bin(proc: ProcessedGaussians, grid_x: int, grid_y: int,
         chunk_nvalid=nvalid.to(i32),
         chunk_offset=offset.to(i32),
         tile_nonempty=tile_nonempty.to(torch.bool),
-        num_rendered=torch.tensor(total, dtype=i32, device=dev),
-        overflow=torch.tensor(total > R, device=dev),
+        num_rendered=num_rendered,
+        overflow=overflow,
     )
 
 

@@ -48,6 +48,7 @@ import torch
 
 from gaussianeditor_tpu_torch.ops import _kernels
 from gaussianeditor_tpu_torch.ops.preprocess import ProcessedGaussians
+from gaussianeditor_tpu_torch.utils.profiling import span, sync
 
 CHUNK = 128  # the budget rounds to a multiple of this, as in the JAX route
 DEAD_KEY = 0xFFFFFFFF               # a dead rank's unbiased 32-bit key
@@ -194,22 +195,30 @@ def sorted_bin(proc: ProcessedGaussians, grid_x: int, grid_y: int,
                          f"[1, {tiled_depth_bits(num_tiles)}] for "
                          f"{num_tiles} tiles")
 
-    b_incl = torch.cumsum(proc.tiles_touched, 0, dtype=torch.int32)
-    total = int(b_incl[-1]) if C > 0 else 0   # the one host read
-    n = ranks_kept(total, max_instances)
-    key, payload = binning_key(proc, b_incl, n, total, grid_x, kdb)
-
-    skey, rank = torch.sort(key, stable=True)
-    payload = payload[:, rank]
-    bounds = tile_bounds_of(skey, num_tiles, kdb)
+    with span("bin.key"):
+        b_incl = torch.cumsum(proc.tiles_touched, 0, dtype=torch.int32)
+        with sync("num_rendered", 4):      # the one host read
+            total = int(b_incl[-1]) if C > 0 else 0
+        n = ranks_kept(total, max_instances)
+        key, payload = binning_key(proc, b_incl, n, total, grid_x, kdb)
+    with span("bin.sort"):
+        skey, rank = torch.sort(key, stable=True)
+    with span("bin.gather"):
+        payload = payload[:, rank]
+        bounds = tile_bounds_of(skey, num_tiles, kdb)
+        # two host scalars copied to the device: the copy waits for the
+        # stream
+        with sync("bin_scalars"):
+            num_rendered = torch.tensor(total, dtype=torch.int32, device=dev)
+            overflow = torch.tensor(total > R, device=dev)
     return SortedBinning(
         payload=payload,
         rank=rank,
         tile_nonempty=bounds[1:] > bounds[:-1],
         tile_bounds=bounds,
         b_incl=b_incl,
-        num_rendered=torch.tensor(total, dtype=torch.int32, device=dev),
-        overflow=torch.tensor(total > R, device=dev),
+        num_rendered=num_rendered,
+        overflow=overflow,
     )
 
 

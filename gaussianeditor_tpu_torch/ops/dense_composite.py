@@ -39,6 +39,7 @@ from gaussianeditor_tpu_torch.ops.tile_composite import (
     backward_rows_plain,
     composite_rows_plain,
 )
+from gaussianeditor_tpu_torch.utils.profiling import span
 
 MAX_CHANNELS = 32  # the widest instance of forward_chunk.cu and backward_chunk.cu
 
@@ -213,10 +214,12 @@ class DenseComposite(torch.autograd.Function):
         tiles = TileImages(*rest[:4])
         db = DenseBinning(*rest[4:])
         ch = inst.shape[1] - 7
-        grows = backward_chunks(inst, db, tiles, g_color.contiguous(),
-                                g_depth.contiguous(), g_T.contiguous(),
-                                ctx.grid_x)
-        d = rank_segment_sum(rows_by_rank(grows, db.a_by_rank), db.b_incl,
-                             tiles_touched, ctx.C)
+        with span("composite.backward"):
+            grows = backward_chunks(inst, db, tiles, g_color.contiguous(),
+                                    g_depth.contiguous(), g_T.contiguous(),
+                                    ctx.grid_x)
+        with span("composite.reduce"):
+            d = rank_segment_sum(rows_by_rank(grows, db.a_by_rank),
+                                 db.b_incl, tiles_touched, ctx.C)
         return (d[:, 0:2], d[:, 2:5], d[:, 5], d[:, 6:6 + ch], d[:, 6 + ch],
                 None, None, None)

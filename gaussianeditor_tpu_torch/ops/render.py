@@ -65,6 +65,7 @@ from gaussianeditor_tpu_torch.ops.tile_composite import (
     KERNEL_CHANNELS,
     TileComposite,
 )
+from gaussianeditor_tpu_torch.utils.profiling import span
 
 IMPLS = (None, "pallas", "pallas4", "tiled", "ref")
 
@@ -175,21 +176,63 @@ def render(
     (every tile is walked whole)."""
     if impl not in IMPLS:
         raise ValueError(f"render impl must be one of {IMPLS}, got {impl!r}")
-    dev = scene.device
-    camera = camera.to(dev)
-    H, W = camera.height, camera.width
-    if bg is None:
-        bg = torch.zeros((3 if override_color is None
-                          else override_color.shape[-1],),
-                         dtype=torch.float32, device=dev)
-    bg = bg.to(dev)
+    with span("render"):
+        dev = scene.device
+        camera = camera.to(dev)
+        H, W = camera.height, camera.width
+        if bg is None:
+            bg = torch.zeros((3 if override_color is None
+                              else override_color.shape[-1],),
+                             dtype=torch.float32, device=dev)
+        bg = bg.to(dev)
 
-    proc = preprocess_scene(scene, camera, scale_modifier=scale_modifier,
-                            override_color=override_color,
-                            mean2d_offset_ndc=mean2d_offset_ndc)
+        with span("render.preprocess"):
+            proc = preprocess_scene(scene, camera,
+                                    scale_modifier=scale_modifier,
+                                    override_color=override_color,
+                                    mean2d_offset_ndc=mean2d_offset_ndc)
 
-    if impl == "ref":
-        color, depth, final_T = composite_dense(proc, H, W, bg)
+        if impl == "ref":
+            with span("render.composite"):
+                color, depth, final_T = composite_dense(proc, H, W, bg)
+            return RenderOutput(
+                color=color,
+                depth=depth,
+                alpha=1.0 - final_T,
+                final_T=final_T,
+                radii=proc.radius,
+                visible=proc.visible,
+                num_rendered=torch.sum(proc.tiles_touched),
+                overflow=torch.zeros((), dtype=torch.bool, device=dev),
+                n_contrib=None,
+            )
+
+        grid_x = (W + TILE - 1) // TILE
+        grid_y = (H + TILE - 1) // TILE
+        if max_instances is None:
+            max_instances = default_max_instances(scene.capacity)
+        comp_args = (proc.mean2d, proc.conic, proc.opacity, proc.color,
+                     proc.depth)
+        dense = (impl == "pallas4"
+                 or proc.color.shape[-1] > max(KERNEL_CHANNELS))
+        with span("render.bin"), torch.no_grad():
+            if dense:
+                binning = dense_bin(proc, grid_x, grid_y, max_instances)
+            else:
+                binning = sorted_bin(
+                    proc, grid_x, grid_y, max_instances,
+                    depth_bits=(tiled_depth_bits(grid_x * grid_y)
+                                if impl == "tiled" else None))
+        with span("render.composite"):
+            composite = DenseComposite if dense else TileComposite
+            t_color, t_depth, t_final_T, t_nc = composite.apply(
+                *comp_args, binning, proc.tiles_touched, grid_x)
+            color = tiles_to_image(t_color, grid_x, grid_y, H, W)
+            depth = tiles_to_image(t_depth, grid_x, grid_y, H, W)
+            final_T = tiles_to_image(t_final_T, grid_x, grid_y, H, W)
+            n_contrib = tiles_to_image(t_nc, grid_x, grid_y, H, W)
+            color = color + final_T[..., None] * bg[None, None, :]
+
         return RenderOutput(
             color=color,
             depth=depth,
@@ -197,49 +240,10 @@ def render(
             final_T=final_T,
             radii=proc.radius,
             visible=proc.visible,
-            num_rendered=torch.sum(proc.tiles_touched),
-            overflow=torch.zeros((), dtype=torch.bool, device=dev),
-            n_contrib=None,
+            num_rendered=binning.num_rendered,
+            overflow=binning.overflow,
+            n_contrib=n_contrib,
         )
-
-    grid_x = (W + TILE - 1) // TILE
-    grid_y = (H + TILE - 1) // TILE
-    if max_instances is None:
-        max_instances = default_max_instances(scene.capacity)
-    comp_args = (proc.mean2d, proc.conic, proc.opacity, proc.color,
-                 proc.depth)
-    if impl == "pallas4" or proc.color.shape[-1] > max(KERNEL_CHANNELS):
-        with torch.no_grad():
-            binning = dense_bin(proc, grid_x, grid_y, max_instances)
-        tiles = DenseComposite.apply(*comp_args, binning, proc.tiles_touched,
-                                     grid_x)
-    else:
-        depth_bits = (tiled_depth_bits(grid_x * grid_y) if impl == "tiled"
-                      else None)
-        with torch.no_grad():
-            binning = sorted_bin(proc, grid_x, grid_y, max_instances,
-                                 depth_bits=depth_bits)
-        tiles = TileComposite.apply(*comp_args, binning, proc.tiles_touched,
-                                    grid_x)
-    t_color, t_depth, t_final_T, t_nc = tiles
-
-    color = tiles_to_image(t_color, grid_x, grid_y, H, W)
-    depth = tiles_to_image(t_depth, grid_x, grid_y, H, W)
-    final_T = tiles_to_image(t_final_T, grid_x, grid_y, H, W)
-    n_contrib = tiles_to_image(t_nc, grid_x, grid_y, H, W)
-    color = color + final_T[..., None] * bg[None, None, :]
-
-    return RenderOutput(
-        color=color,
-        depth=depth,
-        alpha=1.0 - final_T,
-        final_T=final_T,
-        radii=proc.radius,
-        visible=proc.visible,
-        num_rendered=binning.num_rendered,
-        overflow=binning.overflow,
-        n_contrib=n_contrib,
-    )
 
 
 def render_safe(scene, camera: Camera, bg=None, *, max_retries: int = 3,

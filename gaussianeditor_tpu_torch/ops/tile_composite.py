@@ -32,6 +32,7 @@ from gaussianeditor_tpu_torch.ops.composite import (
     TileImages,
 )
 from gaussianeditor_tpu_torch.ops.preprocess import TILE
+from gaussianeditor_tpu_torch.utils.profiling import span
 
 PX = TILE * TILE
 KERNEL_CHANNELS = (1, 2, 3)  # forward_tile.cu's and backward_tile.cu's
@@ -283,9 +284,13 @@ class TileComposite(torch.autograd.Function):
         ch = ctx.ch
         tiles = TileImages(color=color, depth=depth, final_T=final_T,
                            n_contrib=n_contrib)
-        rows = backward_tiles(bounds, payload, rank, tiles,
-                              g_color.contiguous(), g_depth.contiguous(),
-                              g_T.contiguous(), ctx.grid_x, ch)
-        d = rank_segment_sum(rows, b_incl, tiles_touched, ctx.C)
+        # on a card autograd runs this on its device thread, where no
+        # span of the step is open
+        with span("composite.backward"):
+            rows = backward_tiles(bounds, payload, rank, tiles,
+                                  g_color.contiguous(), g_depth.contiguous(),
+                                  g_T.contiguous(), ctx.grid_x, ch)
+        with span("composite.reduce"):
+            d = rank_segment_sum(rows, b_incl, tiles_touched, ctx.C)
         return (d[:, 0:2], d[:, 2:5], d[:, 5], d[:, 6:6 + ch], d[:, 6 + ch],
                 None, None, None)

@@ -34,6 +34,7 @@ from gaussianeditor_tpu_torch.models.gaussians import (
     opacity_inverse_activation,
 )
 from gaussianeditor_tpu_torch.train.anchors import update_anchor_loss_schedule
+from gaussianeditor_tpu_torch.utils.profiling import sync
 
 
 @dataclasses.dataclass(frozen=True)
@@ -171,7 +172,8 @@ def densify_and_prune(
     gen_new = scene.n_generations.to(torch.int32)
 
     # --- rows for the allocated slots; each free slot written once ---
-    src = torch.nonzero(dest < C).squeeze(1)
+    with sync("densify"):       # nonzero reads its count on the host
+        src = torch.nonzero(dest < C).squeeze(1)
     dst = dest[src]
     new_rows = dict(p)
     new_rows["xyz"] = torch.where(split_do[:, None], child_b_xyz, p["xyz"])

@@ -19,6 +19,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from gaussianeditor_tpu_torch.utils.profiling import sync
+
 
 def abs_jax(d: torch.Tensor) -> torch.Tensor:
     """|d| with JAX's gradient at 0: +1 (torch's `abs` gives 0 there,
@@ -98,8 +100,9 @@ def ssim_map(img1: torch.Tensor, img2: torch.Tensor,
         raise ValueError(f"rows must be 'SAME' or 'VALID', got {rows!r}")
     if img1.dim() == 3:
         img1, img2 = img1[None], img2[None]
-    w = torch.as_tensor(_gaussian_window(window_size), device=img1.device,
-                        dtype=img1.dtype)
+    with sync("ssim_window"):     # a host copy: it waits for the stream
+        w = torch.as_tensor(_gaussian_window(window_size),
+                            device=img1.device, dtype=img1.dtype)
 
     def blur(x):
         b, h, wd, c = x.shape

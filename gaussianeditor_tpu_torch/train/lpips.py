@@ -31,6 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from gaussianeditor_tpu_torch.train.losses import exact_conv_flags
+from gaussianeditor_tpu_torch.utils.profiling import sync
 
 # VGG16 `features` conv plan: (out_channels, pool_before) per conv layer
 # (torchvision cfg "D": 64,64,M,128,128,M,256,256,256,M,512,512,512,M,
@@ -157,8 +158,11 @@ def vgg16_features(tw: Dict[str, torch.Tensor], x: torch.Tensor):
     """x [B, H, W, 3] in [0, 1] -> the five tap activations [B, C, h, w];
     `tw` from `torch_weights`."""
     dev = x.device
-    shift = torch.as_tensor(_SHIFT, device=dev)
-    scale = torch.as_tensor(_SCALE, device=dev)
+    # two host constants copied to the device: the copy waits for the
+    # stream
+    with sync("lpips_consts"):
+        shift = torch.as_tensor(_SHIFT, device=dev)
+        scale = torch.as_tensor(_SCALE, device=dev)
     x = (2.0 * x - 1.0 - shift) / scale
     x = x.permute(0, 3, 1, 2)
     taps = []

@@ -46,6 +46,7 @@ from gaussianeditor_tpu_torch.train.trainer import (
     make_train_step,
     upload_images,
 )
+from gaussianeditor_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -155,25 +156,32 @@ class ReconTrainer:
         step = self.state.step
         end = step + n
         while step < end:
-            if self._sh_up_at(step):
-                self.state.scene.one_up_sh_degree()
-            vid = self._next_view()
+            with span("recon.step", rid=step):
+                self._step(step, callback, densify_noise)
+            step += 1
+        return self.state
+
+    def _step(self, step: int, callback, densify_noise) -> None:
+        if self._sh_up_at(step):
+            self.state.scene.one_up_sh_degree()
+        vid = self._next_view()
+        with span("train.step"):
             self.state, m = self.train_step(
                 self.state, [self.cameras[vid]], self.images[vid][None])
-            metrics: Dict[str, torch.Tensor] = {"loss": m["loss"],
-                                                "l1": m["loss_l1"]}
-            if self._densify_after(step):
+        metrics: Dict[str, torch.Tensor] = {"loss": m["loss"],
+                                            "l1": m["loss_l1"]}
+        if self._densify_after(step):
+            with span("train.densify"):
                 if densify_noise is not None:
                     self.state, info = self.densify_step(
                         self.state, noise=densify_noise(step))
                 else:
                     self.state, info = self.densify_step(
                         self.state, generator=self.generator)
-                metrics.update(info)
-            if self._reset_after(step):
+            metrics.update(info)
+        if self._reset_after(step):
+            with span("recon.reset"):
                 reset_opacity(self.state.scene)
                 self.optim.replace_param(self.state.opt_state, "opacity_raw")
-            if callback is not None:
-                callback(step, metrics)
-            step += 1
-        return self.state
+        if callback is not None:
+            callback(step, metrics)

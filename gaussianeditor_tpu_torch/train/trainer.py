@@ -11,9 +11,11 @@ the gradient of a zero [B, C, 2] NDC offset that requires grad.
 
 The state is updated in place: parameters and moments by the optimizer,
 the statistics and the step counter by the step; `TrainState.clone()`
-copies it. Each render reads `num_rendered` on the host once, so a step
-synchronises with the device once per view. The JAX package's burst
-dispatcher (`make_multi_train_step`) and its `batched=True` route have no
+copies it. The host waits for the device several times a view: each
+render reads `num_rendered` and copies two scalars to the device, and
+LPIPS copies its constants (`utils/profiling.py`'s `host_syncs` counts
+each wait by site). The JAX package's burst dispatcher
+(`make_multi_train_step`) and its `batched=True` route have no
 counterpart here.
 """
 
@@ -39,6 +41,7 @@ from gaussianeditor_tpu_torch.train.densify import (
 )
 from gaussianeditor_tpu_torch.train.losses import l1_loss
 from gaussianeditor_tpu_torch.train.optim import AdamState, GaussianAdam
+from gaussianeditor_tpu_torch.utils.profiling import add_h2d_bytes, span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,6 +83,7 @@ def upload_images(images: np.ndarray, device: torch.device) -> torch.Tensor:
     waiting for the device (the caching host allocator keeps the pinned
     buffer until the copy has run)."""
     t = torch.from_numpy(images)
+    add_h2d_bytes(t.numel() * t.element_size())
     if device.type == "cuda":
         return t.pin_memory().to(device, non_blocking=True)
     return t.to(device)
@@ -130,11 +134,13 @@ def make_train_step(optim: GaussianAdam, weights: LossWeights, *,
         for b in range(B):
             out = render(s, cameras[b], bg, mean2d_offset_ndc=offsets[b],
                          impl=impl, max_instances=max_instances)
-            l1s.append(l1_loss(out.color, targets[b]))
-            if perceptual is not None:
-                lps.append(perceptual(out.color, targets[b]))
-            if with_inject:
-                injs.append(torch.sum(out.color * inject_grad[b].detach()))
+            with span("train.loss"):
+                l1s.append(l1_loss(out.color, targets[b]))
+                if perceptual is not None:
+                    lps.append(perceptual(out.color, targets[b]))
+                if with_inject:
+                    injs.append(torch.sum(out.color
+                                          * inject_grad[b].detach()))
             radii_max = torch.maximum(radii_max, out.radii)
             vis_any = vis_any | out.visible
             ovf = ovf | out.overflow
@@ -146,17 +152,20 @@ def make_train_step(optim: GaussianAdam, weights: LossWeights, *,
         total = weights.lambda_l1 * loss_l1 + weights.lambda_p * loss_p
         anchors = {}
         if any(getattr(weights, f) != 0.0 for f in _ANCHOR_WEIGHTS):
-            anchors = anchor_loss(s)
-            for f in _ANCHOR_WEIGHTS:
-                total = total + getattr(weights, f) * anchors[
-                    "loss_" + f[len("lambda_"):]]
+            with span("train.anchors"):
+                anchors = anchor_loss(s)
+                for f in _ANCHOR_WEIGHTS:
+                    total = total + getattr(weights, f) * anchors[
+                        "loss_" + f[len("lambda_"):]]
         total = total + loss_inject
-        *g_params, g_off = torch.autograd.grad(total, params + [offsets])
+        with span("train.backward"):
+            *g_params, g_off = torch.autograd.grad(total,
+                                                   params + [offsets])
         g = dict(zip(PARAM_NAMES, g_params))
         if grads is not None:
             grads.update(g)
 
-        with torch.no_grad():
+        with torch.no_grad(), span("train.optim"):
             # viewspace gradient: summed over the views, then its xy norm
             vnorm = torch.linalg.vector_norm(g_off.sum(dim=0), dim=-1)
             state.stats = add_densification_stats(state.stats, vnorm,

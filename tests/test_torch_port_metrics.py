@@ -9,7 +9,6 @@ grid decoded against the JAX grid's pixels; `save_video` without
 ffmpeg; `StepTimer`'s summary on injected times."""
 
 import json
-import os
 
 import numpy as np
 import pytest
@@ -206,11 +205,3 @@ def test_step_timer_summary_matches_jax():
     assert t.summary()["live"]["count"] == 1
 
 
-def test_trace_and_throughput(tmp_path):
-    with profiling.torch_trace(None):
-        torch.ones(3).sum()
-    with profiling.torch_trace(str(tmp_path / "trace")):
-        torch.ones(64, 64).matmul(torch.ones(64, 64))
-    assert os.listdir(tmp_path / "trace")
-    rate = profiling.throughput(lambda x: x + 1, torch.ones(8), iters=5)
-    assert rate > 0
