@@ -1,10 +1,11 @@
 """Build, load and launch the hand-written CUDA kernels of `csrc/`.
 
-Each `csrc/<name>.cu` holds one kernel behind a plain C entry point
-`int <name>(...)` that launches on the given stream and returns
-`cudaGetLastError()`, plus `const char* <name>_error_string(int)`. At
+Each kernel sits behind a plain C entry point `int <name>(...)` that
+launches on the given stream and returns `cudaGetLastError()`, plus
+`const char* <name>_error_string(int)`, in `csrc/<name>.cu`, or in the
+source `SOURCES` names (one source may hold several entry points). At
 first use every source is compiled by its own `nvcc` process, all started
-together, into `build/kernels/lib<name>-<digest>.so` beside the package
+together, into `build/kernels/lib<source>-<digest>.so` beside the package
 (the directory is git-ignored); the digest covers the source, the
 headers of `csrc/` and the flags, so an edited source or header is
 rebuilt. The libraries are loaded with
@@ -40,6 +41,7 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_F = ctypes.c_float
 
 # C signature of each kernel's entry point (all pointers and the stream
 # as c_void_p, so that 64-bit addresses are never cut)
@@ -62,7 +64,26 @@ SIGNATURES = {
     # bounds, nvalid, offset, inst, num_chunks, num_tiles, grid_x, ch,
     # g_color, g_depth, g_T, color, depth, final_T, n_contrib, out, stream
     "backward_chunk": (_P,) * 4 + (_I,) * 4 + (_P,) * 9,
+    # xyz, log_scales, quats, opacity, alive, offset, features_dc,
+    # features_rest, active degree (pointer, value), world_view, full_proj,
+    # cam_pos, tan_fovx, tan_fovy, W, H, scale_modifier, ty0, ty1, C, sh
+    # degree, mean2d, depth, conic, color, radius, visible, rect_min,
+    # rect_max, tiles_touched, stream
+    "preprocess_forward": ((_P,) * 9 + (_I,) + (_P,) * 5
+                           + (_I, _I, _F, _I, _I, _I, _I) + (_P,) * 10),
+    # xyz, log_scales, quats, features_dc, features_rest, active degree
+    # (pointer, value), world_view, full_proj, cam_pos, tan_fovx,
+    # tan_fovy, W, H, scale_modifier, C, sh degree, g_mean2d, g_depth,
+    # g_conic, g_color, their row strides, d_xyz, d_log_scales, d_quats,
+    # d_features_dc, d_features_rest, d_offset, stream
+    "preprocess_backward": ((_P,) * 6 + (_I,) + (_P,) * 5
+                            + (_I, _I, _F, _I, _I) + (_P,) * 4 + (_I,) * 4
+                            + (_P,) * 7),
 }
+
+# the source of each entry point that is not in csrc/<name>.cu
+SOURCES = {"preprocess_forward": "preprocess",
+           "preprocess_backward": "preprocess"}
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in SIGNATURES}
 
@@ -91,6 +112,7 @@ def nvcc_path() -> str:
 def _lib_path(name: str) -> Path:
     """The library of kernel `name`; its digest covers the source, every
     header of `csrc/` (a source may include any of them) and the flags."""
+    name = SOURCES.get(name, name)
     h = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
     for header in sorted(CSRC_DIR.glob("*.cuh")):
         h.update(header.name.encode() + b"\0" + header.read_bytes())
@@ -105,7 +127,8 @@ def build(names=None) -> Dict[str, float]:
     import time
 
     names = list(SIGNATURES) if names is None else list(names)
-    todo = {n: _lib_path(n) for n in names if not _lib_path(n).exists()}
+    todo = {SOURCES.get(n, n): _lib_path(n) for n in names
+            if not _lib_path(n).exists()}
     if not todo:
         return {}
     nvcc = nvcc_path()
@@ -123,6 +146,9 @@ def build(names=None) -> Dict[str, float]:
         log, _ = proc.communicate()
         secs[name] = time.perf_counter() - t0
         BUILD_LOG[name] = log
+        for entry, source in SOURCES.items():
+            if source == name:
+                BUILD_LOG[entry] = log
         if proc.returncode != 0:
             failed.append(f"{name}:\n{log}")
             continue

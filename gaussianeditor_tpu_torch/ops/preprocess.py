@@ -1,10 +1,10 @@
 """Per-Gaussian preprocessing: cull, project, EWA splat, SH -> color.
 
 Counterpart of `gaussianeditor_tpu/ops/preprocess.py::preprocess` and
-`ProcessedGaussians`, written as plain elementwise torch over [C]
-vectors (structure of arrays) in the same operation order, so that the
-two packages round alike. Every constant is kept: near cull at
-z <= 0.2, the 1.3*tanfov clamp in the EWA Jacobian, the +0.3 px^2
+`ProcessedGaussians`. `preprocess_plain` is written as plain elementwise
+torch over [C] vectors (structure of arrays) in the same operation order,
+so that the two packages round alike. Every constant is kept: near cull
+at z <= 0.2, the 1.3*tanfov clamp in the EWA Jacobian, the +0.3 px^2
 low-pass, radius = ceil(3*sqrt(lambda_max)) with the 0.1 floor inside
 the sqrt, ndc2pix, and the 1e-7 w epsilon. So are the JAX package's
 deliberate deviations from the CUDA reference: the per-axis,
@@ -14,15 +14,27 @@ can never reach 1/255 ("dead opacity"), and `active_sh_degree` gating.
 Float-to-int casts follow XLA's rules (NaN -> 0, saturating), which the
 JAX package's rect arithmetic relies on for culled Gaussians.
 
-Autograd differentiates this stage as it stands. What the JAX package
-wraps in `stop_gradient` is detached here: the isotropic radius, the
-per-axis rect radii, the dead-opacity flag and the mean2d the rect is
-cut from. Without that, `ceil(sqrt(2 ln(256 op) c_xx))` at
-`ln(256 op) <= 0` (every dead slot, every Gaussian with op <= 1/256)
-multiplies an infinite local derivative by `ceil`'s zero and gives NaN
-gradients on the conic and the opacity. `mean2d_offset_ndc` is the
-densification probe: an all-zero [C, 2] added in NDC before `ndc2pix`,
-whose gradient is the viewspace gradient the densify statistics read.
+On float32 CUDA tensors `preprocess` is one autograd Function whose
+forward and backward are each one hand-written kernel
+(`csrc/preprocess.cu`): eager PyTorch would run each line of the plain
+version as its own pass over all C slots, about 420 passes forward and
+675 for autograd's backward, where XLA fuses the JAX code into a few.
+On CPU tensors, and on a float64 scene on the card (the dense oracle's),
+it is `preprocess_plain`, which autograd differentiates as it stands;
+any other dtype on the card raises. Only the opacity passes through
+unchanged, so its gradient is not the Function's.
+
+What the JAX package wraps in `stop_gradient` carries no gradient here:
+the isotropic radius, the per-axis rect radii, the dead-opacity flag and
+the mean2d the rect is cut from. Without that,
+`ceil(sqrt(2 ln(256 op) c_xx))` at `ln(256 op) <= 0` (every dead slot,
+every Gaussian with op <= 1/256) multiplies an infinite local derivative
+by `ceil`'s zero and gives NaN gradients on the conic and the opacity.
+The kernels' backward follows autograd's rules on the plain version:
+`maximum` and `minimum` split a tie in half, `clamp_min` passes the
+gradient at equality. `mean2d_offset_ndc` is the densification probe:
+an all-zero [C, 2] added in NDC before `ndc2pix`, whose gradient is the
+viewspace gradient the densify statistics read.
 """
 
 from __future__ import annotations
@@ -33,6 +45,8 @@ import torch
 
 from gaussianeditor_tpu_torch.core.cameras import Camera
 from gaussianeditor_tpu_torch.core.sh import C0, C1, C2, C3, C4, num_sh_bases
+from gaussianeditor_tpu_torch.ops import _kernels
+from gaussianeditor_tpu_torch.utils.profiling import span
 
 TILE = 16  # pixels per tile side
 
@@ -112,12 +126,12 @@ def _eval_sh_soa(max_degree, shT, x, y, z, active_degree):
     return res
 
 
-def preprocess(
+def preprocess_plain(
     xyz: torch.Tensor,
     log_scales: torch.Tensor,
     quats: torch.Tensor,
     opacity: torch.Tensor,
-    sh: Optional[torch.Tensor],
+    sh,
     camera: Camera,
     *,
     alive: Optional[torch.Tensor] = None,
@@ -128,16 +142,9 @@ def preprocess(
     mean2d_offset_ndc: Optional[torch.Tensor] = None,
     tile_row_range: Optional[Tuple[int, int]] = None,
 ) -> ProcessedGaussians:
-    """Project all C Gaussians into `camera` (on the Gaussians' device).
-
-    Culled and dead Gaussians stay in place with `visible=False`,
-    `radius=0` and `tiles_touched=0`. `mean2d_offset_ndc` [C, 2] is added
-    to the NDC projection (the densification probe). `tile_row_range`
-    (ty0, ty1) keeps only the tile rows [ty0, ty1) of the image, for a
-    strip render (`parallel/tile_sharded.py`): the rects' rows are
-    clipped to it and made strip-local (ty0 subtracted), so
-    `tiles_touched` and `visible` count the strip's tiles alone;
-    `mean2d` stays in image pixels."""
+    """`preprocess` as plain torch, differentiable by autograd: what the
+    kernels are held to, and `preprocess` itself on CPU tensors and
+    float64 ones. `sh` as in `preprocess`."""
     W, H = camera.width, camera.height
     x, y, z = xyz[:, 0], xyz[:, 1], xyz[:, 2]
 
@@ -271,6 +278,8 @@ def preprocess(
         color = override_color
     else:
         assert sh is not None
+        if isinstance(sh, (tuple, list)):
+            sh = torch.cat(list(sh), dim=1)
         assert sh.shape[-2] == num_sh_bases(max_sh_degree)
         dx = x - camera.cam_pos[0]
         dy = y - camera.cam_pos[1]
@@ -294,3 +303,232 @@ def preprocess(
         rect_max=torch.stack([rmaxx, rmaxy], dim=-1),
         tiles_touched=tiles_touched,
     )
+
+
+class _Options(NamedTuple):
+    max_sh_degree: int
+    active_sh_degree: object      # None, an int or an int tensor
+    scale_modifier: float
+    tile_row_range: Optional[Tuple[int, int]]
+
+
+def _use_kernels(xyz: torch.Tensor) -> bool:
+    """The kernels run on float32 CUDA tensors; CPU tensors and a float64
+    scene on the card take the plain version; anything else raises."""
+    if xyz.device.type == "cpu":
+        return False
+    if xyz.device.type != "cuda":
+        raise ValueError(f"preprocess: unsupported device {xyz.device}")
+    if xyz.dtype == torch.float32:
+        return True
+    if xyz.dtype == torch.float64:
+        return False
+    raise ValueError(f"preprocess: the kernels take float32 (float64 takes "
+                     f"the plain version), got {xyz.dtype}")
+
+
+def _active(opts: _Options, dev):
+    """(pointer tensor or None, int) of the active SH degree as the
+    kernels take it: a device-held degree is read by the kernel."""
+    a = opts.active_sh_degree
+    if a is None:
+        return None, opts.max_sh_degree
+    if isinstance(a, torch.Tensor):
+        return a.to(device=dev, dtype=torch.int32).reshape(()), 0
+    return None, int(a)
+
+
+def _camera_args(camera: Camera, dev):
+    chk = _kernels.check_cuda_tensor
+    f32 = torch.float32
+    return (chk(camera.world_view, "world_view", f32, dev, (4, 4)),
+            chk(camera.full_proj, "full_proj", f32, dev, (4, 4)),
+            chk(camera.cam_pos, "cam_pos", f32, dev, (3,)),
+            chk(camera.tan_fovx, "tan_fovx", f32, dev, ()),
+            chk(camera.tan_fovy, "tan_fovy", f32, dev, ()),
+            camera.width, camera.height)
+
+
+def _forward_kernel(xyz, log_scales, quats, dc, rest, offset, opacity, alive,
+                    camera: Camera, opts: _Options):
+    dev, C = xyz.device, xyz.shape[0]
+    chk = _kernels.check_cuda_tensor
+    f32 = torch.float32
+    xyz = chk(xyz, "xyz", f32, dev, (C, 3))
+    log_scales = chk(log_scales, "log_scales", f32, dev, (C, 3))
+    quats = chk(quats, "quats", f32, dev, (C, 4))
+    opacity = chk(opacity, "opacity", f32, dev, (C,))
+    if alive is not None:
+        alive = chk(alive, "alive", torch.bool, dev, (C,))
+    if offset is not None:
+        offset = chk(offset, "mean2d_offset_ndc", f32, dev, (C, 2))
+    D = opts.max_sh_degree
+    if dc is not None:
+        dc = chk(dc, "features_dc", f32, dev, (C, 1, 3))
+        rest = chk(rest, "features_rest", f32, dev,
+                   (C, num_sh_bases(D) - 1, 3))
+    active_ptr, active = _active(opts, dev)
+    W, H = camera.width, camera.height
+    ty0, ty1 = (-1, -1) if opts.tile_row_range is None else (
+        int(opts.tile_row_range[0]), int(opts.tile_row_range[1]))
+    mean2d = torch.empty((C, 2), dtype=f32, device=dev)
+    depth = torch.empty((C,), dtype=f32, device=dev)
+    conic = torch.empty((C, 3), dtype=f32, device=dev)
+    color = (torch.empty((C, 3), dtype=f32, device=dev) if dc is not None
+             else None)
+    radius = torch.empty((C,), dtype=torch.int32, device=dev)
+    visible = torch.empty((C,), dtype=torch.bool, device=dev)
+    rect_min = torch.empty((C, 2), dtype=torch.int32, device=dev)
+    rect_max = torch.empty((C, 2), dtype=torch.int32, device=dev)
+    tiles = torch.empty((C,), dtype=torch.int32, device=dev)
+    if C > 0:
+        _kernels.launch(
+            "preprocess_forward", dev, xyz, log_scales, quats, opacity, alive,
+            offset, dc, rest, active_ptr, active,
+            *_camera_args(camera, dev), float(opts.scale_modifier), ty0, ty1,
+            C, D, mean2d, depth, conic, color, radius, visible, rect_min,
+            rect_max, tiles)
+    return (mean2d, depth, conic, color, radius, visible, rect_min, rect_max,
+            tiles)
+
+
+def _backward_kernel(xyz, log_scales, quats, dc, rest, camera: Camera,
+                     opts: _Options, g_mean2d, g_depth, g_conic, g_color,
+                     want_offset: bool):
+    dev, C = xyz.device, xyz.shape[0]
+    f32 = torch.float32
+    chk = _kernels.check_cuda_tensor
+    D = opts.max_sh_degree
+    # the kernel indexes its inputs as contiguous rows: a [C, K, 3] `sh`
+    # arrives as two strided slices of it
+    xyz = chk(xyz, "xyz", f32, dev, (C, 3))
+    log_scales = chk(log_scales, "log_scales", f32, dev, (C, 3))
+    quats = chk(quats, "quats", f32, dev, (C, 4))
+    if dc is not None:
+        dc = chk(dc, "features_dc", f32, dev, (C, 1, 3))
+        rest = chk(rest, "features_rest", f32, dev,
+                   (C, num_sh_bases(D) - 1, 3))
+
+    def rows(g, name, shape):
+        """(g, its row stride): the compositor's backward hands over
+        column slices of one array, read in place."""
+        if g is None:
+            return None, 0
+        if g.device != dev or g.dtype != f32 or tuple(g.shape) != shape:
+            raise ValueError(f"{name}: expected float32 {shape} on {dev}, "
+                             f"got {g.dtype} {tuple(g.shape)} on {g.device}")
+        if g.dim() > 1 and g.stride(1) != 1:
+            g = g.contiguous()
+        return g, g.stride(0)
+
+    g_mean2d, s_mean2d = rows(g_mean2d, "g_mean2d", (C, 2))
+    g_depth, s_depth = rows(g_depth, "g_depth", (C,))
+    g_conic, s_conic = rows(g_conic, "g_conic", (C, 3))
+    g_color, s_color = rows(None if dc is None else g_color, "g_color",
+                            (C, 3))
+    active_ptr, active = _active(opts, dev)
+    d_xyz = torch.empty((C, 3), dtype=f32, device=dev)
+    d_ls = torch.empty((C, 3), dtype=f32, device=dev)
+    d_q = torch.empty((C, 4), dtype=f32, device=dev)
+    d_dc = torch.empty_like(dc) if dc is not None else None
+    d_rest = torch.empty_like(rest) if dc is not None else None
+    d_off = torch.empty((C, 2), dtype=f32, device=dev) if want_offset else None
+    if C > 0:
+        _kernels.launch(
+            "preprocess_backward", dev, xyz, log_scales, quats, dc, rest,
+            active_ptr, active, *_camera_args(camera, dev),
+            float(opts.scale_modifier), C, D, g_mean2d,
+            g_depth, g_conic, g_color, s_mean2d, s_depth, s_conic, s_color,
+            d_xyz, d_ls, d_q, d_dc, d_rest, d_off)
+    return d_xyz, d_ls, d_q, d_dc, d_rest, d_off
+
+
+class _Preprocess(torch.autograd.Function):
+    """The kernel pair. mean2d, depth, conic and color (SH mode) are
+    differentiable; the radius, visibility, rects and tile counts are
+    not. Inputs: xyz, log_scales, quats, features_dc and features_rest
+    (both None when the colour is overridden), mean2d_offset_ndc (or
+    None), opacity (read for the rect only), alive, the camera and
+    `_Options`."""
+
+    @staticmethod
+    def forward(ctx, xyz, log_scales, quats, dc, rest, offset, opacity, alive,
+                camera, opts):
+        out = list(_forward_kernel(xyz, log_scales, quats, dc, rest, offset,
+                                   opacity, alive, camera, opts))
+        if out[3] is None:      # no colour: a placeholder output
+            out[3] = xyz.new_empty((0,))
+            ctx.mark_non_differentiable(out[3])
+        ctx.mark_non_differentiable(*out[4:])
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(xyz, log_scales, quats, dc, rest)
+        ctx.camera, ctx.opts = camera, opts
+        ctx.has_offset = offset is not None
+        return tuple(out)
+
+    @staticmethod
+    def backward(ctx, g_mean2d, g_depth, g_conic, g_color, *_):
+        xyz, log_scales, quats, dc, rest = ctx.saved_tensors
+        with span("render.preprocess.backward"):
+            d_xyz, d_ls, d_q, d_dc, d_rest, d_off = _backward_kernel(
+                xyz, log_scales, quats, dc, rest, ctx.camera, ctx.opts,
+                g_mean2d, g_depth, g_conic, g_color, ctx.has_offset)
+        return (d_xyz, d_ls, d_q, d_dc, d_rest,
+                d_off if ctx.has_offset else None, None, None, None, None)
+
+
+def preprocess(
+    xyz: torch.Tensor,
+    log_scales: torch.Tensor,
+    quats: torch.Tensor,
+    opacity: torch.Tensor,
+    sh,
+    camera: Camera,
+    *,
+    alive: Optional[torch.Tensor] = None,
+    active_sh_degree=None,
+    max_sh_degree: int = 3,
+    scale_modifier: float = 1.0,
+    override_color: Optional[torch.Tensor] = None,
+    mean2d_offset_ndc: Optional[torch.Tensor] = None,
+    tile_row_range: Optional[Tuple[int, int]] = None,
+) -> ProcessedGaussians:
+    """Project all C Gaussians into `camera` (on the Gaussians' device).
+
+    `sh` is [C, K, ch] SH coefficients, or the pair (features_dc [C, 1,
+    3], features_rest [C, K-1, 3]) as the scene stores them (the kernels
+    read the pair in place); it is not read when `override_color` [C, ch]
+    is given, which is returned as the colour. Culled and dead Gaussians
+    stay in place with `visible=False`, `radius=0` and `tiles_touched=0`.
+    `mean2d_offset_ndc` [C, 2] is added to the NDC projection (the
+    densification probe). `tile_row_range` (ty0, ty1) keeps only the
+    tile rows [ty0, ty1) of the image, for a strip render
+    (`parallel/tile_sharded.py`): the rects' rows are clipped to it and
+    made strip-local (ty0 subtracted), so `tiles_touched` and `visible`
+    count the strip's tiles alone; `mean2d` stays in image pixels."""
+    if not _use_kernels(xyz):
+        return preprocess_plain(
+            xyz, log_scales, quats, opacity, sh, camera, alive=alive,
+            active_sh_degree=active_sh_degree, max_sh_degree=max_sh_degree,
+            scale_modifier=scale_modifier, override_color=override_color,
+            mean2d_offset_ndc=mean2d_offset_ndc,
+            tile_row_range=tile_row_range)
+    dc = rest = None
+    if override_color is None:
+        assert sh is not None
+        if isinstance(sh, (tuple, list)):
+            dc, rest = sh
+        else:
+            dc, rest = sh[:, :1], sh[:, 1:]
+        assert dc.shape[1] + rest.shape[1] == num_sh_bases(max_sh_degree)
+    opts = _Options(int(max_sh_degree), active_sh_degree,
+                    float(scale_modifier), tile_row_range)
+    (mean2d, depth, conic, color, radius, visible, rect_min, rect_max,
+     tiles) = _Preprocess.apply(xyz, log_scales, quats, dc, rest,
+                                mean2d_offset_ndc, opacity, alive, camera,
+                                opts)
+    return ProcessedGaussians(
+        mean2d=mean2d, depth=depth, conic=conic,
+        color=override_color if override_color is not None else color,
+        opacity=opacity, radius=radius, visible=visible, rect_min=rect_min,
+        rect_max=rect_max, tiles_touched=tiles)

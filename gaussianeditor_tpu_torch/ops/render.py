@@ -35,9 +35,10 @@ every route and ignored.
     No binning and no kernel; `num_rendered` is the sum of
     `tiles_touched`, `overflow` False and `n_contrib` None.
 
-Differentiable: under autograd the preprocess is differentiated as
-plain torch and the compositor through `TileComposite` or
-`DenseComposite`. The binning is built under `no_grad`.
+Differentiable: under autograd the preprocess is differentiated
+through its Function (`ops/preprocess.py`: two kernels on the card;
+plain torch under autograd on the CPU) and the compositor through
+`TileComposite` or `DenseComposite`. The binning is built under `no_grad`.
 `mean2d_offset_ndc`, an all-zero [C, 2] tensor that requires grad, is
 the densification probe: its gradient is the viewspace gradient of the
 reference's `screenspace_points`.
@@ -133,8 +134,10 @@ def preprocess_scene(scene, camera: Camera, *, scale_modifier: float = 1.0,
                      mean2d_offset_ndc: Optional[torch.Tensor] = None,
                      tile_row_range=None):
     """`preprocess` of every slot of `scene` (dead slots stay invisible);
-    `tile_row_range` keeps a strip of tile rows (see `preprocess`)."""
-    sh = None if override_color is not None else scene.get_features
+    `tile_row_range` keeps a strip of tile rows (see `preprocess`). The
+    SH coefficients go in as the scene stores them, never concatenated."""
+    sh = (None if override_color is not None
+          else (scene.features_dc, scene.features_rest))
     return preprocess(
         scene.xyz,
         scene.log_scales,

@@ -6,16 +6,20 @@
 import the JAX test helpers can apply the same bounds. `adversarial_rows`
 and `dense_from_rows` make inputs for the backward kernels' tests, on the
 CPU and on the card, and `key_layouts` for kernel B1's;
-`kernel_constants` reads a kernel source's constants. `watch_served_fit`,
-`whole_step_frames` and `whole_step_index` check that the web UI serves only whole steps of a
-fit. `run_ranks` runs a function on spawned ranks of one process group
-(gloo on the CPU in the tests; two ranks sharing one card in
+`kernel_constants` reads a kernel source's constants. `tie_scene` and
+`tie_camera` build the preprocess's slots on each tie of its backward,
+for the plain version on the CPU and the kernels on the card.
+`watch_served_fit`, `whole_step_frames` and `whole_step_index` check
+that the web UI serves only whole steps of a fit. `run_ranks` runs a
+function on spawned ranks of one process group (gloo on the CPU in the
+tests; two ranks sharing one card in
 `chip_smoke.py`), and `fingerprint` compares tensors across ranks
 without shipping them.
 """
 
 from __future__ import annotations
 
+import math
 import re
 
 import numpy as np
@@ -377,3 +381,93 @@ def fingerprint(tensors) -> torch.Tensor:
         out.append((b * w).sum(dim=1))
     return torch.cat(out)
 
+
+
+# the slots of `tie_scene` built on a tie, and its image size
+TIE_X, TIE_Y, TIE_COLOR, TIE_QUAT = 0, 1, 2, 3
+TIE_SLOTS = 96
+TIE_W, TIE_H = 56, 40
+
+
+def tie_camera(device="cpu"):
+    """A camera at the origin looking down +z with world_view = I, so that
+    a slot's camera coordinates are its own and a tie can be built
+    exactly."""
+    from gaussianeditor_tpu_torch.core.cameras import (
+        Camera,
+        get_projection_matrix,
+    )
+
+    fovx, fovy = 0.9, 0.7
+    proj = get_projection_matrix(0.01, 100.0, fovx, fovy)
+    f32 = dict(dtype=torch.float32, device=device)
+    return Camera(world_view=torch.eye(4, **f32),
+                  full_proj=torch.as_tensor(proj, device=device),
+                  cam_pos=torch.zeros(3, **f32),
+                  tan_fovx=torch.tensor(math.tan(fovx / 2), **f32),
+                  tan_fovy=torch.tensor(math.tan(fovy / 2), **f32),
+                  height=TIE_H, width=TIE_W)
+
+
+def _nearest(start: float, dtype, hit) -> float:
+    """The value of `dtype` nearest `start` (within 256 steps of its
+    spacing) for which `hit(value tensor)` holds."""
+    v = torch.tensor(start, dtype=dtype)
+    up = torch.tensor(math.inf, dtype=dtype)
+    down = -up
+    lo = hi = v
+    for _ in range(256):
+        for c in (lo, hi):
+            if bool(hit(c)):
+                return float(c)
+        lo, hi = torch.nextafter(lo, down), torch.nextafter(hi, up)
+    raise ValueError(f"no {dtype} value near {start} makes the tie")
+
+
+def tie_scene(max_sh_degree: int, dtype, device="cpu", seed: int = 0):
+    """(xyz, log_scales, quats, opacity, features_dc, features_rest,
+    alive) of TIE_SLOTS slots in front of `tie_camera`, with near-culled,
+    frustum-clamped, dead-opacity, zero-quaternion and dead slots, and one
+    slot on each tie of the preprocess's backward, exact in `dtype` under
+    the plain version's arithmetic: t/tz at +lim in x (TIE_X) and -lim
+    in y (TIE_Y), colour channel 1 at SH + 0.5 == 0 (TIE_COLOR), |q|^2
+    at clamp_min's 1e-24 (TIE_QUAT)."""
+    from gaussianeditor_tpu_torch.core.sh import C0
+
+    rng = np.random.RandomState(seed)
+    cam = tie_camera()
+    n, K = TIE_SLOTS, (max_sh_degree + 1) ** 2
+    xyz = np.stack([rng.uniform(-0.8, 0.8, n), rng.uniform(-0.6, 0.6, n),
+                    rng.uniform(1.0, 3.0, n)], -1)
+    xyz[8:14, 2] = rng.uniform(-1.0, 0.2, 6)            # near-culled
+    xyz[14:20, 0] = rng.choice([-1, 1], 6) * 4.0         # frustum-clamped
+    # the clamp's limits as the plain version computes them (float32)
+    limx = float(1.3 * cam.tan_fovx)
+    limy = float(1.3 * cam.tan_fovy)
+    xyz[TIE_X] = (2.0 * limx, 0.1, 2.0)
+    xyz[TIE_Y] = (0.1, -2.0 * limy, 2.0)
+    log_scales = np.log(rng.uniform(0.02, 0.2, (n, 3)))
+    quats = rng.randn(n, 4)
+    quats[20:24] = 0.0                                   # below clamp_min
+    # two components, so that the rotation is not the identity's, whose
+    # radial derivative is zero
+    floor = torch.tensor(1e-24, dtype=dtype)
+    qi = torch.tensor(8e-13, dtype=dtype)
+    quats[TIE_QUAT] = (_nearest(6e-13, dtype,
+                                lambda q: q * q + qi * qi == floor),
+                       float(qi), 0.0, 0.0)
+    opacity = rng.uniform(0.05, 1.0, n)
+    opacity[24:30] = 1 / 300                             # dead opacity
+    dc = rng.randn(n, 1, 3) * 0.5
+    rest = rng.randn(n, K - 1, 3) * 0.2
+    dc[TIE_COLOR, 0, 1] = _nearest(-0.5 / C0, dtype,
+                                   lambda d: C0 * d + 0.5 == 0)
+    rest[TIE_COLOR] = 0.0
+    alive = np.ones(n, bool)
+    alive[-8:] = False                                   # dead slots
+
+    def t(a):
+        return torch.tensor(a, dtype=dtype, device=device)
+
+    return (t(xyz), t(log_scales), t(quats), t(opacity), t(dc), t(rest),
+            torch.from_numpy(alive).to(device))

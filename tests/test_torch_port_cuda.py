@@ -32,6 +32,10 @@ from gaussianeditor_tpu_torch.ops.dense_composite import (
     pack_instances,
     rows_by_rank,
 )
+from gaussianeditor_tpu_torch.ops.preprocess import (
+    preprocess,
+    preprocess_plain,
+)
 from gaussianeditor_tpu_torch.ops.render import preprocess_scene, render
 from gaussianeditor_tpu_torch.ops.tile_composite import (
     backward_tiles,
@@ -41,11 +45,17 @@ from gaussianeditor_tpu_torch.ops.tile_composite import (
     forward_tiles_plain,
 )
 from gaussianeditor_tpu_torch.testing import (
+    TIE_COLOR,
+    TIE_QUAT,
+    TIE_X,
+    TIE_Y,
     adversarial_rows,
     assert_images_close,
     dense_from_rows,
     fraction_equal,
     key_layouts,
+    tie_camera,
+    tie_scene,
 )
 
 pytestmark = pytest.mark.cuda
@@ -188,7 +198,8 @@ def test_render_on_cuda_counts_launches(cuda):
         out = render(scene, cam)
     torch.cuda.synchronize()
     assert _kernels.launch_counts() == dict(NO_LAUNCHES, binning_key=1,
-                                            forward_tile=1)
+                                            forward_tile=1,
+                                            preprocess_forward=1)
     assert out.color.is_cuda and torch.isfinite(out.color).all()
     assert out.color.shape == (64, 64, 3) and out.color.max() > 0
 
@@ -293,7 +304,7 @@ def test_render_backward_on_cuda_counts_launches(cuda):
     torch.cuda.synchronize()
     assert _kernels.launch_counts() == dict(
         NO_LAUNCHES, binning_key=1, forward_tile=1, backward_tile=1,
-        rank_segment_sum=1)
+        rank_segment_sum=1, preprocess_forward=1, preprocess_backward=1)
     assert all(torch.isfinite(g).all() for g in grads)
     assert float(grads[0].abs().sum()) > 0
 
@@ -496,7 +507,8 @@ def test_render_pallas4_backward_on_cuda_counts_launches(cuda, ch):
                                 [scene.xyz, scene.opacity_raw])
     torch.cuda.synchronize()
     assert _kernels.launch_counts() == dict(
-        NO_LAUNCHES, forward_chunk=1, backward_chunk=1, rank_segment_sum=1)
+        NO_LAUNCHES, forward_chunk=1, backward_chunk=1, rank_segment_sum=1,
+        preprocess_forward=1, preprocess_backward=1)
     assert out.color.shape == (64, 64, ch)
     assert all(torch.isfinite(g).all() for g in grads)
     assert float(grads[0].abs().sum()) > 0
@@ -520,6 +532,7 @@ def test_render_every_width_on_cuda(cuda, ch):
     else:
         want = dict(NO_LAUNCHES, forward_chunk=1, backward_chunk=1,
                     rank_segment_sum=1)
+    want.update(preprocess_forward=1, preprocess_backward=1)
     assert _kernels.launch_counts() == want
     assert out.color.shape == (48, 48, ch) and out.color.max() > 0
     assert all(torch.isfinite(g).all() for g in grads)
@@ -602,7 +615,8 @@ def test_apply_weights_on_cuda_repeats_and_matches_cpu(cuda):
                               c0.to(cuda))
     torch.cuda.synchronize()
     assert _kernels.launch_counts() == dict(NO_LAUNCHES, binning_key=2,
-                                            rank_segment_sum=2)
+                                            rank_segment_sum=2,
+                                            preprocess_forward=2)
     assert torch.equal(w1, w2) and torch.equal(c1, c2) and not bool(o1)
     wc, cc, _ = apply_weights(scene_cpu, cams[1], img, w0, c0)
     assert int(cc.sum()) > 0
@@ -648,6 +662,10 @@ def test_edit_steps_with_lpips_repeat_bitwise(cuda):
     for k in ("binning_key", "forward_tile", "backward_tile",
               "rank_segment_sum"):
         assert counts[k] > 0, k
+    # one preprocess forward a render or tracing view, one backward a
+    # view's backward
+    assert counts["preprocess_forward"] == counts["binning_key"]
+    assert counts["preprocess_backward"] == counts["backward_tile"]
     assert ma == mb and all(v > 0 for v in ma)
     for k, v in a.state.scene.params().items():
         assert torch.equal(v, getattr(b.state.scene, k)), k
@@ -672,7 +690,8 @@ def test_tiled_render_is_the_sorted_route_at_the_tiled_cut(cuda):
     with torch.no_grad():
         out = render(scene, cam, impl="tiled", tile_cap=3, chunk=5)
     assert _kernels.launch_counts() == dict(NO_LAUNCHES, binning_key=1,
-                                            forward_tile=1)
+                                            forward_tile=1,
+                                            preprocess_forward=1)
     with torch.no_grad():
         proc = preprocess_scene(scene, cam)
         sb = sorted_bin(proc, gx, gy, 1 << 22, depth_bits=bits)
@@ -688,7 +707,9 @@ def test_tiled_render_is_the_sorted_route_at_the_tiled_cut(cuda):
     torch.cuda.synchronize()
     assert _kernels.launch_counts() == dict(NO_LAUNCHES, binning_key=1,
                                             forward_tile=1, backward_tile=1,
-                                            rank_segment_sum=1)
+                                            rank_segment_sum=1,
+                                            preprocess_forward=1,
+                                            preprocess_backward=1)
     assert torch.isfinite(scene.xyz.grad).all() and scene.xyz.grad.any()
 
 
@@ -859,7 +880,7 @@ def test_render_and_backward_at_1297x840_match_the_plain_route(cuda):
     torch.cuda.synchronize()
     assert _kernels.launch_counts() == dict(
         NO_LAUNCHES, binning_key=1, forward_tile=1, backward_tile=1,
-        rank_segment_sum=1)
+        rank_segment_sum=1, preprocess_forward=1, preprocess_backward=1)
     out_p, g_p = run(copy.deepcopy(scene).to("cpu"), torch.device("cpu"))
     assert out_k.color.shape == (*RECON_HW, 3)
     assert int(out_k.num_rendered) == int(out_p.num_rendered)
@@ -911,7 +932,8 @@ def test_recon_steps_through_every_event_repeat_bitwise(cuda):
     b, mb = run()
     torch.cuda.synchronize()
     assert counts == dict(NO_LAUNCHES, binning_key=20, forward_tile=20,
-                          backward_tile=20, rank_segment_sum=20)
+                          backward_tile=20, rank_segment_sum=20,
+                          preprocess_forward=20, preprocess_backward=20)
     assert ma == mb and np.isfinite([m[0] for m in ma]).all()
     assert sum(m[1] > 0 for m in ma) >= 1     # a densify split Gaussians
     for k, v in a.scene.params().items():
@@ -975,7 +997,7 @@ def test_recon_through_launch_counts_its_launches(cuda, tmp_path):
     launch.main(["--config", str(cfg), "--train", "--test"])
     assert _kernels.launch_counts() == dict(
         NO_LAUNCHES, binning_key=6 + 2, forward_tile=6 + 2, backward_tile=6,
-        rank_segment_sum=6)
+        rank_segment_sum=6, preprocess_forward=6 + 2, preprocess_backward=6)
     (trial,) = out_dir.iterdir()
     rows = [json.loads(line) for line in open(trial / "metrics.jsonl")]
     assert len(rows) == 6 and np.isfinite([r["loss"] for r in rows]).all()
@@ -1022,3 +1044,176 @@ def test_served_frames_are_whole_steps_on_cuda(cuda):
     fitted = list(system.scene.parameters()) + list(system.scene.buffers())
     for a, b in zip(served, fitted):
         assert torch.equal(a, b)
+
+
+# (SH degree, active degree, override channels, offset, tile rows,
+#  scale modifier) of the preprocess kernels' cases
+PRE_CASES = {
+    "sh3": (3, 3, None, True, None, 1.0),
+    "sh0": (0, None, None, True, None, 1.0),
+    "sh1-active0": (1, 0, None, True, None, 1.0),
+    "sh2": (2, 2, None, False, None, 1.0),
+    "sh4-active3": (4, 3, None, True, None, 1.0),
+    "override-ch1": (3, 3, 1, True, None, 1.0),
+    "override-ch3": (3, 3, 3, True, None, 1.0),
+    "strip-scale": (3, 3, None, True, (2, 6), 1.4),
+}
+
+
+def _pre_inputs(name, device):
+    D, active, oc_ch, with_off, rows, smod = PRE_CASES[name]
+    scene = _scene(30000, device, seed=31, capacity=36000, sh=D)
+    with torch.no_grad():
+        scene.quats[:50] = 0.0                 # below clamp_min
+        scene.opacity_raw[50:100] = -6.0       # dead opacity
+    cam = lookat_camera((0, 0, -3), (0, 0, 0), (0, 1, 0), 0.8, 0.7, 128,
+                        160, device=device)
+    C = scene.capacity
+    g = torch.Generator(device="cpu").manual_seed(7)
+    oc = (None if oc_ch is None
+          else torch.rand((C, oc_ch), generator=g).to(device))
+    off = torch.zeros((C, 2), device=device) if with_off else None
+    act = (None if active is None
+           else torch.tensor(active, dtype=torch.int32, device=device))
+    leaves = [t.detach().clone().requires_grad_(True) for t in (
+        scene.xyz, scene.log_scales, scene.quats, scene.features_dc,
+        scene.features_rest)] + (
+        [off.clone().requires_grad_(True)] if with_off else [])
+    kw = dict(alive=scene.alive, active_sh_degree=act, max_sh_degree=D,
+              scale_modifier=smod, override_color=oc, tile_row_range=rows)
+    return leaves, scene.get_opacity[:, 0].detach(), cam, kw
+
+
+@pytest.mark.parametrize("name", list(PRE_CASES))
+def test_preprocess_kernels_match_plain(cuda, name):
+    """The forward kernel gives the plain version's outputs on the card
+    bit for bit, integer and float fields; the backward kernel is within
+    1e-5 of each gradient's largest entry of autograd on the plain
+    version, from a cotangent on the visible slots, and zero elsewhere."""
+    leaves, op, cam, kw = _pre_inputs(name, cuda)
+    xyz, ls, q, dc, rest = leaves[:5]
+    off = leaves[5] if len(leaves) > 5 else None
+    _kernels.reset_launch_counts()
+    got = preprocess(xyz, ls, q, op, (dc, rest), cam, mean2d_offset_ndc=off,
+                     **kw)
+    assert _kernels.launch_counts() == dict(NO_LAUNCHES,
+                                            preprocess_forward=1)
+    want = preprocess_plain(xyz, ls, q, op, (dc, rest), cam,
+                            mean2d_offset_ndc=off, **kw)
+    for f in ("radius", "visible", "rect_min", "rect_max", "tiles_touched"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    for f in ("mean2d", "depth", "conic", "color"):
+        a, b = getattr(got, f).detach(), getattr(want, f).detach()
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32)), f
+    vis = want.visible
+    assert int(vis.sum()) > 1000
+    names = ["mean2d", "depth", "conic"] + (
+        ["color"] if kw["override_color"] is None else [])
+    # column slices of one [C, 10] array, as the compositor's backward
+    # hands them over
+    g = torch.Generator(device="cpu").manual_seed(3)
+    rows = torch.randn((vis.shape[0], 10), generator=g).to(cuda)
+    rows = rows * vis[:, None]
+    cols = dict(mean2d=rows[:, 0:2], conic=rows[:, 2:5], color=rows[:, 6:9],
+                depth=rows[:, 9])
+    cot = [cols[k] for k in names]
+    wrt = leaves if kw["override_color"] is None else leaves[:3] + leaves[5:]
+    g_k = torch.autograd.grad([getattr(got, k) for k in names], wrt, cot)
+    g_p = torch.autograd.grad([getattr(want, k) for k in names], wrt, cot)
+    assert _kernels.launch_counts()["preprocess_backward"] == 1
+    for i, (a, b) in enumerate(zip(g_k, g_p)):
+        # (a gated band's gradient is zero in both)
+        scale = float(b.abs().max()) if b.numel() else 0.0
+        err = float((a - b).abs().max()) if b.numel() else 0.0
+        assert err <= 1e-5 * scale, (i, err, scale)
+        assert not a[~vis].any(), i
+
+
+def test_preprocess_float64_on_cuda_takes_the_plain_version(cuda):
+    leaves, op, cam, kw = _pre_inputs("sh3", cuda)
+    leaves = [t.detach().double().requires_grad_(True) for t in leaves]
+    _kernels.reset_launch_counts()
+    out = preprocess(*leaves[:3], op.double(), tuple(leaves[3:5]), cam,
+                     mean2d_offset_ndc=leaves[5], **kw)
+    grads = torch.autograd.grad(
+        out.color.sum() + out.mean2d.sum() + out.conic.sum(), leaves)
+    assert _kernels.launch_counts() == NO_LAUNCHES
+    assert out.mean2d.dtype == torch.float64
+    assert all(torch.isfinite(g).all() for g in grads)
+
+
+def test_preprocess_half_on_cuda_raises(cuda):
+    leaves, op, cam, kw = _pre_inputs("sh3", cuda)
+    with pytest.raises(ValueError, match="float32"):
+        preprocess(*[t.detach().half() for t in leaves[:3]], op.half(),
+                   tuple(t.detach().half() for t in leaves[3:5]), cam, **kw)
+
+
+@pytest.mark.parametrize("sh_form", ["pair", "tensor"])
+@pytest.mark.parametrize("name", list(PRE_CASES))
+def test_preprocess_kernels_at_ties_match_autograd(cuda, name, sh_form):
+    """The kernels on `tie_scene`'s slots in float32, built on each tie of
+    the backward (the frustum clamp at +-1.3 tanfov, max(SH + 0.5, 0) at
+    0, clamp_min at |q|^2 = 1e-24) and on clamped, dead-opacity,
+    zero-quaternion and dead slots: the forward bit for bit the plain
+    version's; the backward, from a cotangent on every slot in front of
+    the near plane, within 1e-5 of autograd on the plain version, of each
+    gradient's largest entry and, on each tied slot, of that slot's own.
+    `sh` as the pair and as one [C, K, 3] tensor, whose two slices the
+    kernels get strided."""
+    D, active, oc_ch, with_off, _, smod = PRE_CASES[name]
+    rows = (1, 2) if name == "strip-scale" else None
+    xyz, ls, q, op, dc, rest, alive = tie_scene(D, torch.float32, cuda)
+    cam = tie_camera(cuda)
+    C = xyz.shape[0]
+    g = torch.Generator(device="cpu").manual_seed(5)
+    oc = (None if oc_ch is None
+          else torch.rand((C, oc_ch), generator=g).to(cuda))
+    act = (None if active is None
+           else torch.tensor(active, dtype=torch.int32, device=cuda))
+    kw = dict(alive=alive, active_sh_degree=act, max_sh_degree=D,
+              scale_modifier=smod, override_color=oc, tile_row_range=rows)
+    sh = ([dc, rest] if sh_form == "pair" else [torch.cat([dc, rest], 1)])
+    leaves = [t.clone().requires_grad_(True) for t in [xyz, ls, q] + sh]
+    if with_off:
+        leaves.append(torch.zeros((C, 2), device=cuda, requires_grad=True))
+    off = leaves[-1] if with_off else None
+    sh_in = tuple(leaves[3:5]) if sh_form == "pair" else leaves[3]
+
+    def run(fn):
+        return fn(leaves[0], leaves[1], leaves[2], op, sh_in, cam,
+                  mean2d_offset_ndc=off, **kw)
+
+    _kernels.reset_launch_counts()
+    got = run(preprocess)
+    want = run(preprocess_plain)
+    for f in ("radius", "visible", "rect_min", "rect_max", "tiles_touched"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    for f in ("mean2d", "depth", "conic", "color"):
+        a, b = getattr(got, f).detach(), getattr(want, f).detach()
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32)), f
+    colored = oc is None
+    if colored:
+        assert float(want.color[TIE_COLOR, 1]) == 0.0
+    names = ["mean2d", "depth", "conic"] + (["color"] if colored else [])
+    front = (want.depth > 0.2).float()
+    cot = []
+    for k in names:
+        v = torch.randn(getattr(want, k).shape, generator=g).to(cuda)
+        cot.append(v * (front if v.dim() == 1 else front[:, None]))
+    wrt = leaves if colored else leaves[:3] + leaves[3 + len(sh):]
+    g_k = torch.autograd.grad([getattr(got, k) for k in names], wrt, cot)
+    g_p = torch.autograd.grad([getattr(want, k) for k in names], wrt, cot)
+    assert _kernels.launch_counts() == dict(
+        NO_LAUNCHES, preprocess_forward=1, preprocess_backward=1)
+    ties = [TIE_X, TIE_Y, TIE_QUAT] + ([TIE_COLOR] if colored else [])
+    for i, (a, b) in enumerate(zip(g_k, g_p)):
+        assert torch.isfinite(b).all(), i
+        err = (a - b).abs().reshape(C, -1)
+        ref = b.abs().reshape(C, -1)
+        if not ref.numel():
+            continue
+        assert float(err.max()) <= 1e-5 * float(ref.max()), i
+        for t in ties:
+            assert float(err[t].max()) <= 1e-5 * float(ref[t].max()), (i, t)
+

@@ -307,3 +307,23 @@ def test_b1_launches_lie_inside_bin_key_spans(traced):
         t, who = e.start_ns(), e.device_resource_id()
         assert any(k.start_ns <= t <= k.end_ns and who in (k.tid, k.ident)
                    for k in keys)
+
+
+@pytest.mark.cuda
+def test_preprocess_backward_kernel_opens_its_span(traced):
+    """On the card the preprocess backward kernel's launch lies in a
+    `render.preprocess.backward` span, one per render's backward."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    dev = torch.device("cuda")
+    scene = _scene(20000, dev, capacity=40000)
+    cam = lookat_camera((0, 0, -4), (0, 0, 0), (0, 1, 0), 0.8, 0.8, 128, 128,
+                        device=dev)
+    profiling.take_spans()
+    for _ in range(2):
+        render(scene, cam).color.sum().backward()
+    torch.cuda.synchronize()
+    spans = [s for s in profiling.take_spans()
+             if s.name == "render.preprocess.backward"]
+    assert len(spans) == 2
+
