@@ -11,12 +11,16 @@ shows as a lower share.
 
 The kernel counts are frozen copies of `chip_smoke.py`'s:
 `b1_bytes` and the B2, B3 and B4 operation and byte counts of
-`check_kernels` and `phase_backward`.
+`check_kernels` and `phase_backward`. A new kernel's count is a new
+module of `benchmark/ext/` (its `KERNELS`), at the peak its arithmetic
+runs at; `kernel` finds it.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Sequence
+from typing import Callable, Dict, Sequence
+
+from benchmark import ext
 
 # NVIDIA H100 SXM data sheet: FP32 outside the tensor cores, HBM3
 PEAK_FLOPS = 67e12
@@ -127,4 +131,11 @@ def step_least_s(views: Sequence[dict], views_per_step: int,
     return t
 
 
-KERNELS: Dict[str, object] = {"b1": b1, "b2": b2, "b3": b3, "b4": b4}
+KERNELS: Dict[str, Callable[[dict], float]] = {
+    "b1": b1, "b2": b2, "b3": b3, "b4": b4}
+
+
+def kernel(name: str) -> Callable[[dict], float]:
+    """The count `name`, of `KERNELS` or of a module of `benchmark/ext/`;
+    `LookupError` for a name neither defines."""
+    return ext.lookup("KERNELS", name, KERNELS)

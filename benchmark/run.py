@@ -6,17 +6,33 @@
 from the root of a checkout. The cell is an entry of `BENCHMARK.json`'s
 `workloads`; its configuration, traffic mix, limits and metrics are the
 JSON files `benchmark/{configs,traffic,cells,metrics}/<name>.json`,
-found by name. A metric file names a `kind`, one of the arithmetic of
-`KINDS` below, and its parameters; a later cell, mix or metric of a kind
-that exists is a new file and no code.
+found by name. A traffic file names its `driver`, and a metric file its
+`kind` and the kind's parameters (a `roofline` metric its kernel
+`count`). Drivers, kinds and counts are the harness's own
+(`workload.DRIVERS`, `KINDS` below and `spans.KINDS`,
+`counts.KERNELS`) or those of the modules of `benchmark/ext/`, merged
+by name (the docstring of `benchmark/ext/__init__.py`).
+
+What a new configuration adds, then, is new files and new entries, and
+no edit of a file the benchmark has: its configuration file
+(`configs/`), a traffic file (`traffic/`) and a cell file with its
+limits (`cells/`) for each cell, a metric file for each new metric
+(`metrics/`), and where the built-ins do not serve, one module of
+`benchmark/ext/` with its driver (set-up, window and the reference
+checks that decide `correct`), its metric kinds and its kernel counts;
+then its entries in `BENCHMARK.json`'s `configs`, `workloads` and
+`per_layer`.
 
 The last line of standard output is one JSON object: `correct`,
 `attempted`, `failed`, `metrics` (the cell's end-to-end metrics, or with
 `--trace 1` its per-layer ones), `device`, with `--trace 1` `breakdown`,
 and last `checks`, each number compared beside its limit; the same
-numbers end standard error. It exits with 3 and prints no result without
-the chips the cell asks for, and with 4 if JAX or the JAX package was
-loaded.
+numbers end standard error. With `--trace 1` the program's spans and
+counters are recorded over the profiled window only (`tracing.py`) and
+read by `spans.py`, whose readings are also `info` lines. It exits with
+3 and prints no result without the chips the cell asks for, with 4 if
+JAX or the JAX package was loaded, and with 5 for a driver, kind or
+kernel count that no file defines.
 
 Two more modes, which the benchmark's own runs do not use:
 `--control 1` puts the reference, in TF32, in the program's place (it
@@ -40,7 +56,7 @@ from pathlib import Path  # noqa: E402
 
 import torch  # noqa: E402
 
-from benchmark import counts, workload  # noqa: E402
+from benchmark import counts, ext, spans, workload  # noqa: E402
 
 HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
@@ -70,21 +86,13 @@ def metrics_of(bench: dict, name: str, traced: bool) -> list:
     return [m for m in group if name in m.get("workloads", [name])]
 
 
-def percentile(values: list, q: float):
-    """Nearest-rank percentile."""
-    if not values:
-        return None
-    v = sorted(values)
-    return v[max(0, math.ceil(q / 100.0 * len(v)) - 1)]
-
-
 def _roofline(run, m):
     if run.trace is None or not run.work or not run.steps:
         return None
     spent = run.trace.seconds(m["pattern"]) / run.steps
     if spent <= 0:
         return None
-    kernel = counts.KERNELS[m["count"]]
+    kernel = counts.kernel(m["count"])
     bound = run.views_per_step * sum(map(kernel, run.work)) / len(run.work)
     return 100.0 * bound / spent
 
@@ -93,7 +101,8 @@ def _mfu(run, m):
     if not run.work or not run.steps:
         return None
     least = counts.step_least_s(run.work, run.views_per_step,
-                                run.perceptual, run.anchors)
+                                run.perceptual, run.anchors) \
+        + run.extra_least_s
     return 100.0 * least / (run.window_s / run.steps)
 
 
@@ -107,7 +116,8 @@ KINDS = {
     "setup": lambda run, m: run.setup_s,
     "window_per_step": lambda run, m: (
         None if not run.steps else 1e3 * run.window_s / run.steps),
-    "percentile": lambda run, m: percentile(run.latencies_ms, m["q"]),
+    "percentile": lambda run, m: workload.percentile(run.latencies_ms,
+                                                     m["q"]),
     "idle_pct": lambda run, m: None if run.trace is None else (
         100.0 * (1.0 - run.trace.busy_s / run.trace.window_s)),
     "kernel_ms_per_step": _trace_ms,
@@ -117,6 +127,35 @@ KINDS = {
     "roofline": _roofline,
     "mfu": _mfu,
 }
+
+
+def kind(name: str):
+    """The metric kind `name`: of `KINDS`, `spans.KINDS` or a module of
+    `benchmark/ext/`; `LookupError` for a name none defines."""
+    return ext.lookup("KINDS", name, KINDS, spans.KINDS)
+
+
+def resolve(bench: dict, name: str, traced: bool, root: Path = HERE) -> list:
+    """(name, unit, kind, metric file) of each of the cell's metrics;
+    `LookupError` for a kind or kernel count that no file defines."""
+    out = []
+    for m in metrics_of(bench, name, traced):
+        f = load("metrics", m["name"], root)
+        if "count" in f:
+            counts.kernel(f["count"])
+        out.append((m["name"], m["unit"], kind(f["kind"]), f))
+    return out
+
+
+def values(metrics: list, run) -> dict:
+    """The result line's `metrics`: each of `resolve`'s metrics that the
+    run has something to read for."""
+    out = {}
+    for name, unit, k, f in metrics:
+        v = k(run, f)
+        if v is not None:
+            out[name] = {"value": v, "unit": unit}
+    return out
 
 
 def power_limit() -> str:
@@ -160,6 +199,12 @@ def main(argv=None) -> int:
     with open(ROOT / "BENCHMARK.json") as f:
         bench = json.load(f)
     entry, cfg, traffic, cellf = cell_files(bench, args.workload)
+    try:
+        drive = workload.driver(traffic["driver"])
+        metrics = resolve(bench, args.workload, bool(args.trace))
+    except LookupError as e:
+        print(f"benchmark: {e.args[0]}", file=sys.stderr)
+        return 5
     chips = int(entry["chips"])
     if not torch.cuda.is_available() or torch.cuda.device_count() < chips:
         print(f"benchmark: the cell needs {chips} CUDA device(s); "
@@ -167,7 +212,6 @@ def main(argv=None) -> int:
               f"device_count={torch.cuda.device_count()}", file=sys.stderr)
         return 3
     device = torch.device("cuda", 0)
-    drive = workload.DRIVERS[traffic["driver"]]
 
     def cell(seed, t_start, window=True):
         return workload.Cell(
@@ -192,16 +236,11 @@ def main(argv=None) -> int:
 
     run = drive(cell(args.seed, T_START))
     ok, checks = judge(run, cellf["limits"], cellf.get("optional", ()))
-    metrics = {}
-    for m in metrics_of(bench, args.workload, bool(args.trace)):
-        v = KINDS[load("metrics", m["name"])["kind"]](
-            run, load("metrics", m["name"]))
-        if v is not None:
-            metrics[m["name"]] = {"value": v, "unit": m["unit"]}
+    spans.read(run)
     dev = {"platform": "gpu", "kind": torch.cuda.get_device_name(device),
            "count": chips, "memory_peak_bytes": run.memory_peak}
     out = {"correct": ok, "attempted": run.attempted, "failed": run.failed,
-           "metrics": metrics, "device": dev}
+           "metrics": values(metrics, run), "device": dev}
     if run.trace is not None:
         dev["busy_s"] = run.trace.busy_s
         dev["window_s"] = run.trace.window_s

@@ -1,18 +1,15 @@
 """The program's own spans and counters, read against the profiler's
 events.
 
-    python3 -m benchmark.spans --workload <cell> --seed <n> --seconds <s>
-
-runs a cell as `python3 -m benchmark.run ... --trace 1` does, with the
-program's span recorder (`gaussianeditor_tpu_torch/utils/profiling.py`)
-switched on over the profiled window, and adds to its `info` lines on
-standard error the readings below: `span_metrics` (the per-layer
-metrics of `METRICS` for that cell, by the kinds of `KINDS`), the share
-of device time given to a span, the device's idle time by span, device
-and elementwise ms by span, the window's host syncs by site, B1's
-launches against `bin.key`, and a web UI frame's parts. The result line
-is the one `benchmark.run` prints. `benchmark.run` itself does not read
-the spans: its drivers leave the recorder off.
+A `--trace 1` run of `python3 -m benchmark.run` records the program's
+spans and counters (`gaussianeditor_tpu_torch/utils/profiling.py`) over
+its profiled window (`tracing.profiler`), and `read` gives the run their
+`Spans`: the per-layer metrics of the kinds in `KINDS` read it, and
+`info` lines on standard error add the share of device time given to a
+span, the device's idle time by span, device and elementwise ms by span,
+the window's host syncs by site, B1's launches against `bin.key`, and a
+web UI frame's parts. `python3 -m benchmark.spans --workload <cell>
+--seed <n> --seconds <s>` is that run.
 
 Each device event is given to a program span: the runtime event that
 shares its correlation id names the launching thread (by OS thread id,
@@ -28,7 +25,7 @@ on to the `train.backward` span open at its time.
 from __future__ import annotations
 
 import bisect
-import contextlib
+import heapq
 import json
 import re
 import statistics
@@ -36,9 +33,7 @@ import sys
 from pathlib import Path
 from typing import Dict, List, Optional, Tuple
 
-from benchmark import run as bench_run
-from benchmark import tracing, workload
-from gaussianeditor_tpu_torch.utils import profiling
+from benchmark.workload import percentile
 
 BACKWARD = "train.backward"
 BACKWARD_SPANS = ("composite.backward", "composite.reduce")
@@ -47,72 +42,25 @@ NO_SPAN = "(no span)"
 FRAME_PARTS = ("sync.camera", "webui.lock_wait", "webui.render",
                "webui.png")
 
-
-def _spans_of(run):
-    return getattr(run, "spans", None)
-
-
 # the metric kinds, called as `benchmark.run.KINDS` calls its own: with
-# the run (its `spans` a `Spans`, or absent without a trace) and the
-# metric's parameters; None where there is nothing to read
+# the run (its `spans` a `Spans`, or None without a trace) and the
+# metric file's parameters; None where there is nothing to read
 KINDS = {
     "span_device_ms_per_step": lambda run, m: (
-        None if _spans_of(run) is None or not run.steps
+        None if run.spans is None or not run.steps
         else run.spans.device_ms(m["span"]) / run.steps),
     "counter_per_step": lambda run, m: (
-        None if _spans_of(run) is None or not run.steps
+        None if run.spans is None or not run.steps
         else run.spans.count(m["counter"]) / run.steps),
     "idle_in_sync_pct": lambda run, m: (
-        None if _spans_of(run) is None
+        None if run.spans is None
         else run.spans.idle_in_sync_pct(m["thread_span"])),
     "frame_queue_ms": lambda run, m: (
-        None if _spans_of(run) is None
-        else bench_run.percentile(run.spans.frame_queue_ms(), m["q"])),
+        None if run.spans is None
+        else percentile(run.spans.frame_queue_ms(), m["q"])),
     "span_ms": lambda run, m: (
-        None if _spans_of(run) is None
-        else bench_run.percentile(run.spans.durations_ms(m["span"]),
-                                  m["q"])),
-}
-
-# the per-layer metrics read from the spans: name -> the cell that
-# reports it, its kind and the kind's parameters
-METRICS = {
-    "adam_ms.edit": {"cell": "edit1m", "kind": "span_device_ms_per_step",
-                     "span": "train.optim"},
-    "adam_ms.recon": {"cell": "garden-late",
-                      "kind": "span_device_ms_per_step",
-                      "span": "train.optim"},
-    "render_fwd_ms.edit": {"cell": "edit1m",
-                           "kind": "span_device_ms_per_step",
-                           "span": "render"},
-    "sorted_bin_ms.edit": {"cell": "edit1m",
-                           "kind": "span_device_ms_per_step",
-                           "span": "render.bin"},
-    "sorted_bin_ms.recon": {"cell": "garden-late",
-                            "kind": "span_device_ms_per_step",
-                            "span": "render.bin"},
-    "host_syncs_per_step.edit": {"cell": "edit1m",
-                                 "kind": "counter_per_step",
-                                 "counter": "host_syncs"},
-    "host_syncs_per_step.recon": {"cell": "garden-late",
-                                  "kind": "counter_per_step",
-                                  "counter": "host_syncs"},
-    "idle_in_sync_pct.edit": {"cell": "edit1m", "kind": "idle_in_sync_pct",
-                              "thread_span": "edit.step"},
-    "idle_in_sync_pct.recon": {"cell": "garden-late",
-                               "kind": "idle_in_sync_pct",
-                               "thread_span": "recon.step"},
-    "frame_queue_ms_p90.webui": {"cell": "webui-edit1m",
-                                 "kind": "frame_queue_ms", "q": 90},
-    "frame_lock_ms_p90.webui": {"cell": "webui-edit1m", "kind": "span_ms",
-                                "span": "webui.lock_wait", "q": 90},
-    "png_ms_p50.webui": {"cell": "webui-edit1m", "kind": "span_ms",
-                         "span": "webui.png", "q": 50},
-    "frame_camera_ms_p90.webui": {"cell": "webui-edit1m", "kind": "span_ms",
-                                  "span": "sync.camera", "q": 90},
-    "frame_readback_ms_p90.webui": {"cell": "webui-edit1m",
-                                    "kind": "span_ms", "span": "sync.frame",
-                                    "q": 90},
+        None if run.spans is None
+        else percentile(run.spans.durations_ms(m["span"]), m["q"])),
 }
 
 
@@ -123,83 +71,29 @@ def elementwise_pattern() -> str:
     return json.loads(path.read_text())["pattern"]
 
 
-def start() -> dict:
-    """Switch the program's span recording on; its counters now."""
-    profiling.take_spans()
-    profiling.tracing(True)
-    return profiling.counters()
-
-
-def counter_delta(before: dict, after: dict) -> dict:
-    """`after` less `before`, site by site for `host_syncs`."""
-    out = {k: after[k] - before.get(k, 0) for k in after
-           if k != "host_syncs"}
-    hs = {k: v - before["host_syncs"].get(k, 0)
-          for k, v in after["host_syncs"].items()}
-    out["host_syncs"] = {k: v for k, v in hs.items() if v}
-    return out
-
-
-def read(run, cell: str, window: dict) -> None:
-    """Give `run` the `Spans` of the profiled `window` (its profiler,
-    spans and counters' change) and add the readings to `run.info`."""
-    run.spans = Spans(window["spans"], window["counters"],
-                      window["prof"].profiler.kineto_results.events())
+def read(run) -> None:
+    """Give `run` the `Spans` of its traced window, where its trace
+    recorded the program's, and add their readings to `run.info`."""
+    program = getattr(run.trace, "program", None)
+    if program is None:
+        return
+    run.spans = Spans(*program, run.trace.events)
     run.info.update(run.spans.info(run.steps, run.latencies_ms))
-    run.info["span_metrics"] = {
-        name: KINDS[m["kind"]](run, m) for name, m in METRICS.items()
-        if m["cell"] == cell}
 
 
 def main(argv=None) -> int:
-    """`benchmark.run`'s `main` with `--trace 1`, the recorder on over
-    each profiled window and the spans read when the cell's driver
-    returns."""
-    window: dict = {}
-    plain, drivers = tracing.profiler, dict(workload.DRIVERS)
+    """`python3 -m benchmark.run ... --trace 1`."""
+    from benchmark import run
 
-    @contextlib.contextmanager
-    def profiler():
-        window.clear()
-        before = start()
-        try:
-            with plain() as prof:
-                yield prof
-        finally:
-            profiling.tracing(False)
-        window.update(prof=prof, spans=profiling.take_spans(),
-                      counters=counter_delta(before, profiling.counters()))
-
-    def traced(drive):
-        def run_cell(cell):
-            out = drive(cell)
-            if window:
-                read(out, cell.name, window)
-            return out
-        return run_cell
-
-    tracing.profiler = profiler
-    workload.DRIVERS.update({k: traced(f) for k, f in drivers.items()})
-    try:
-        return bench_run.main(list(sys.argv[1:] if argv is None else argv)
-                              + ["--trace", "1"])
-    finally:
-        tracing.profiler = plain
-        workload.DRIVERS.update(drivers)
-
-
-def _key(e) -> Optional[int]:
-    """The launching thread of a runtime event: its OS thread id, or the
-    low 32 bits of its pthread id, which the profiler gives as a signed
-    32-bit number."""
-    f = getattr(e, "device_resource_id", None)
-    return None if f is None else int(f()) & 0xFFFFFFFF
+    return run.main(list(sys.argv[1:] if argv is None else argv)
+                    + ["--trace", "1"])
 
 
 class Spans:
     """A window's program spans against its device events."""
 
     def __init__(self, spans: list, counters: dict, events):
+        """`events`: the window's `tracing.Events`."""
         self.spans = list(spans)
         self.counters = counters
         self.by_id = {s.id: s for s in self.spans}
@@ -213,26 +107,12 @@ class Spans:
         self.backward = sorted((s for s in self.spans if s.name == BACKWARD),
                                key=lambda s: s.start_ns)
         self.backward_starts = [s.start_ns for s in self.backward]
-        dev, host = [], []
-        for e in events:
-            s, d = e.start_ns(), e.duration_ns()
-            if str(e.device_type()).endswith("CUDA"):
-                dev.append((s, s + d, e.correlation_id(), e.name()))
-            elif d > 0 or e.name().startswith("cu"):
-                host.append((s, d, e.correlation_id(), e.name(), _key(e)))
-        corrs = {c for _, _, c, _ in dev}
-        # runtime launches: correlation id -> (start, thread key)
-        launch = {c: (s, k) for s, _, c, n, k in host
-                  if c in corrs and n.startswith("cu")}
         # the window as `tracing.Trace` takes it
-        self.t0 = min([x[0] for x in dev]
-                      + [s for s, d, *_ in host if d > 0], default=0)
-        self.t1 = max([x[1] for x in dev]
-                      + [s + d for s, d, *_ in host if d > 0], default=0)
+        self.t0, self.t1 = events.t0, events.t1
         self.dev: List[Tuple[int, int, str, Optional[tuple], int, int]] = []
         memo: Dict[Optional[int], tuple] = {}
-        for a, b, c, name in sorted(dev):
-            ls, key = launch.get(c, (None, None))
+        for a, b, c, name in events.dev:
+            ls, key = events.launch.get(c, (None, None))
             chain = None
             if ls is not None:
                 chain = self._chain(ls, key, memo)
@@ -362,10 +242,24 @@ class Spans:
         open on any thread at each gap's middle: [name, ms], longest
         first, `(no span)` last."""
         by: Dict[str, int] = {}
-        keys = {s.tid for s in self.spans}
+        # each thread's first start and last end: a gap looks only at the
+        # threads whose spans reach it (the web UI's handler threads are
+        # one a request)
+        reach: Dict[int, list] = {}
+        for s in self.spans:
+            r = reach.setdefault(s.tid, [s.start_ns, s.end_ns])
+            r[0], r[1] = min(r[0], s.start_ns), max(r[1], s.end_ns)
+        todo = sorted((a, b, k) for k, (a, b) in reach.items())
+        live: List[Tuple[int, int]] = []    # (last end, thread)
+        i = 0
         for a, b in self.gaps():
             mid = (a + b) // 2
-            inner = [s for s in (self.innermost(k, mid) for k in keys)
+            while i < len(todo) and todo[i][0] <= mid:
+                heapq.heappush(live, (todo[i][1], todo[i][2]))
+                i += 1
+            while live and live[0][0] < mid:
+                heapq.heappop(live)
+            inner = [s for s in (self.innermost(k, mid) for _, k in live)
                      if s is not None]
             name = (min(inner, key=lambda s: s.end_ns - s.start_ns).name
                     if inner else NO_SPAN)

@@ -20,5 +20,5 @@ def test_the_control_is_not_correct(name, cuda_device):
         cell.traffic["size"] = 256
     for seed in (1, 2, 3):
         cell.seed = seed
-        r = workload.DRIVERS[cell.traffic["driver"]](cell)
+        r = workload.driver(cell.traffic["driver"])(cell)
         assert not run.judge(r, cell.limits)[0], r.checks

@@ -10,7 +10,7 @@ from conftest import tiny_cell
 
 
 def correct(cell):
-    r = workload.DRIVERS[cell.traffic["driver"]](cell)
+    r = workload.driver(cell.traffic["driver"])(cell)
     optional = run.load("cells", cell.name).get("optional", ())
     return run.judge(r, cell.limits, optional)[0]
 

@@ -1,9 +1,12 @@
-"""No module of the benchmark imports JAX or the JAX package, and the
-reference (with the inputs it reads) imports nothing of the program.
-Top-level module names are compared whole: the port's name begins with
-the JAX package's."""
+"""No module of the benchmark imports JAX or the JAX package, its
+extension modules (`benchmark/ext/`) included, and the reference (with
+the inputs it reads) imports nothing of the program. Top-level module
+names are compared whole: the port's name begins with the JAX
+package's."""
 
 import ast
+import subprocess
+import sys
 from pathlib import Path
 
 import pytest
@@ -26,7 +29,8 @@ def top_level_imports(path: Path) -> set:
 MODULES = sorted(BENCH.rglob("*.py"))
 
 
-@pytest.mark.parametrize("path", MODULES, ids=lambda p: p.name)
+@pytest.mark.parametrize("path", MODULES, ids=lambda p: (
+    f"ext/{p.name}" if p.parent.name == "ext" else p.name))
 def test_no_jax(path):
     assert not top_level_imports(path) & FORBIDDEN
 
@@ -44,6 +48,21 @@ def test_the_names_are_compared_whole(tmp_path):
     assert not top_level_imports(p) & FORBIDDEN
 
 
+def test_extension_modules_load_no_jax():
+    """Every module of `benchmark/ext/`, as the harness loads them, in a
+    fresh interpreter: nothing of JAX or the JAX package in
+    `sys.modules` after."""
+    code = ("import sys; from benchmark import ext; ext.load(); "
+            "print(sorted({m.split('.')[0] for m in sys.modules}))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=BENCH.parent,
+                         capture_output=True, text=True, timeout=300,
+                         check=True)
+    assert not set(ast.literal_eval(out.stdout.strip().splitlines()[-1])) \
+        & FORBIDDEN
+
+
 def test_at_most_eight_code_files():
-    code = [p for p in BENCH.rglob("*.py") if "tests" not in p.parts]
+    """The harness's own modules; a configuration's extension module
+    under `ext/` is its own file."""
+    code = list(BENCH.glob("*.py"))
     assert len(code) <= 8

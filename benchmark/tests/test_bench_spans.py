@@ -5,6 +5,7 @@ queue wait, no reading without a trace, and the entry point that runs a
 cell with the recorder on over its window."""
 
 import ast
+import dataclasses
 import io
 import json
 from contextlib import redirect_stderr, redirect_stdout
@@ -12,69 +13,22 @@ from contextlib import redirect_stderr, redirect_stdout
 import pytest
 import torch
 
-from benchmark import spans, tracing, workload
+from benchmark import run, spans, tracing, workload
+from conftest import (
+    AUTOGRAD,
+    HANDLER,
+    MAIN,
+    Ev,
+    kernel,
+    sp,
+    step_events,
+    step_spans,
+)
 from gaussianeditor_tpu_torch.utils import profiling
-from gaussianeditor_tpu_torch.utils.profiling import Span
-
-MAIN, IDENT, AUTOGRAD, HANDLER = 100, 0x7F00AA, 101, 0xA79FF6C0
-
-
-class Ev:
-    """A `_KinetoEvent` stand-in."""
-
-    def __init__(self, name, start, dur, dev, corr, key):
-        self._v = (name, start, dur, dev, corr, key)
-
-    def name(self):
-        return self._v[0]
-
-    def start_ns(self):
-        return self._v[1]
-
-    def duration_ns(self):
-        return self._v[2]
-
-    def device_type(self):
-        return "DeviceType.CUDA" if self._v[3] else "DeviceType.CPU"
-
-    def correlation_id(self):
-        return self._v[4]
-
-    def device_resource_id(self):
-        return self._v[5]
-
-
-def kernel(name, launch_at, key, start, dur, corr):
-    """A runtime launch on thread `key` and the device work it starts."""
-    return [Ev("cudaLaunchKernel", launch_at, 5, False, corr, key),
-            Ev(name, start, dur, True, corr, 7)]
-
-
-def sp(name, start, end, id, parent=None, tid=MAIN, ident=IDENT, rid=0):
-    return Span(name, start, end, id, parent, tid, ident, rid)
-
-
-def step_spans():
-    return [
-        sp("edit.step", 0, 1000, 1),
-        sp("train.step", 10, 900, 2, 1),
-        sp("render", 20, 200, 3, 2),
-        sp("render.bin", 50, 150, 4, 3),
-        sp("sync.num_rendered", 60, 100, 5, 4),
-        sp("train.backward", 300, 600, 6, 2),
-        sp("composite.backward", 350, 380, 7, None, AUTOGRAD, 0x99),
-        sp("train.optim", 650, 850, 8, 2),
-        sp("bin.key", 105, 145, 9, 4),
-    ]
 
 
 def test_innermost_span_on_the_launching_thread():
-    ev = (kernel("binning_key_kernel", 120, MAIN, 130, 10, 1)
-          + kernel("adam", 700, IDENT, 710, 30, 2)     # by pthread id
-          + kernel("fill", 205, MAIN, 210, 4, 3)        # render has ended
-          + kernel("other_thread", 120, 555, 220, 6, 4)
-          + [Ev("Memset", 900, 2, True, 99, 7)])        # no launch seen
-    s = spans.Spans(step_spans(), {}, ev)
+    s = spans.Spans(step_spans(), {}, tracing.Events(step_events()))
     assert s.device_ms("render.bin") == pytest.approx(10e-6)
     assert s.device_ms("render") == pytest.approx(10e-6)
     assert s.device_ms("train.optim") == pytest.approx(30e-6)
@@ -91,7 +45,7 @@ def test_autograd_thread_launches_go_to_the_open_backward():
     ev = (kernel("mul_backward", 320, AUTOGRAD, 330, 8, 1)
           + kernel("backward_tile_kernel", 360, 0x99, 370, 20, 2)
           + kernel("late", 650, AUTOGRAD, 655, 3, 3))   # backward ended
-    s = spans.Spans(step_spans(), {}, ev)
+    s = spans.Spans(step_spans(), {}, tracing.Events(ev))
     assert s.device_ms("train.backward") == pytest.approx(28e-6)
     assert s.device_ms("composite.backward") == pytest.approx(20e-6)
     assert s.device_ms("edit.step") == pytest.approx(28e-6)
@@ -106,7 +60,7 @@ def test_idle_in_sync_pct_on_hand_made_gaps():
           + [Ev("aten::copy_", 240, 10, False, 0, MAIN)])
     sps = [sp("edit.step", 0, 250, 1), sp("sync.x", 60, 130, 2, 1),
            sp("sync.y", 0, 300, 3, None, tid=HANDLER, ident=HANDLER)]
-    s = spans.Spans(sps, {}, ev)
+    s = spans.Spans(sps, {}, tracing.Events(ev))
     assert (s.t0, s.t1) == (0, 250)
     assert s.gaps() == [(40, 100), (200, 250)]
     assert s.idle_in_sync_pct("edit.step") == pytest.approx(100.0 * 40 / 110)
@@ -127,7 +81,7 @@ def test_frame_queue_wait():
     ev = (kernel("step_work", 110, MAIN, 115, 400, 1)
           + kernel("preprocess", 150, signed, 515, 10, 2)
           + kernel("b2", 160, signed, 530, 10, 3))
-    s = spans.Spans(sps, {}, ev)
+    s = spans.Spans(sps, {}, tracing.Events(ev))
     assert s.frame_queue_ms() == [pytest.approx(365e-6)]
     assert s.durations_ms("webui.lock_wait") == [pytest.approx(90e-6)]
     info = s.frames([0.0012])
@@ -141,62 +95,147 @@ def test_counters_over_the_window():
               "spans_dropped": 0}
     after = {"host_syncs": {"a": 7, "b": 2}, "h2d_bytes": 30,
              "d2h_bytes": 8, "spans_dropped": 0}
-    d = spans.counter_delta(before, after)
+    d = tracing.counter_delta(before, after)
     assert d["host_syncs"] == {"a": 4, "b": 2} and d["h2d_bytes"] == 20
-    s = spans.Spans([], d, [])
+    s = spans.Spans([], d, tracing.Events([]))
     assert s.count("host_syncs") == 6 and s.count("d2h_bytes") == 8
 
 
-@pytest.mark.parametrize("name", sorted(spans.METRICS))
+def bench():
+    with open(run.ROOT / "BENCHMARK.json") as f:
+        return json.load(f)
+
+
+def span_metrics(cell=None) -> dict:
+    """The per-layer metrics of the span kinds: name -> metric file,
+    those of `cell` only where one is named."""
+    out = {}
+    for m in bench()["per_layer"]:
+        f = run.load("metrics", m["name"])
+        if f["kind"] in spans.KINDS and (cell is None
+                                         or cell in m["workloads"]):
+            out[m["name"]] = f
+    return out
+
+
+@pytest.mark.parametrize("name", sorted(span_metrics()))
 def test_each_new_kind_is_none_without_a_trace(name):
-    m = spans.METRICS[name]
+    m = span_metrics()[name]
     r = workload.Run(steps=10, window_s=1.0, latencies_ms=[1.0] * 20)
     assert spans.KINDS[m["kind"]](r, m) is None
 
 
+def _cpu_card(monkeypatch):
+    """`run.main` past its look for a card, the profiler on the host."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda d=None: "card")
+    monkeypatch.setattr(tracing, "activities",
+                        lambda: [torch.profiler.ProfilerActivity.CPU])
+
+
+def _main(argv) -> tuple:
+    out, err = io.StringIO(), io.StringIO()
+    with redirect_stdout(out), redirect_stderr(err):
+        rc = argv[0](argv[1:])
+    line = out.getvalue().strip().splitlines()
+    return rc, (json.loads(line[-1]) if line else None), err.getvalue()
+
+
 def _driver_with_spans(cell):
-    """A driver whose window runs two steps of program spans on the CPU,
-    with a host sync before the window that the window does not count."""
-    r = workload.Run(setup_s=1.0, steps=2, attempted=2, latencies_ms=[1.0])
+    """A driver whose window runs two steps of program spans on the CPU
+    through `workload.timed`, with a host sync before the window that
+    the window does not count."""
+    r = workload.Run(setup_s=1.0, latencies_ms=[1.0])
     r.checks = {k: 0.0 for k in cell.limits}
     with profiling.sync("setup"):
         pass
-    with tracing.profiler() as prof:
+
+    def body(deadline):
         for step in range(2):
             with profiling.span("edit.step", rid=step):
                 with profiling.span("train.optim"):
                     torch.ones(8).add_(1)
                 with profiling.sync("x"):
                     pass
-    r.trace = tracing.Trace(prof)
+        return 2
+
+    workload.timed(dataclasses.replace(cell, device=torch.device("cpu")), r,
+                   body)
     return r
 
 
 def test_main_reads_the_window_spans(monkeypatch):
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
-    monkeypatch.setattr(torch.cuda, "get_device_name", lambda d=None: "card")
+    _cpu_card(monkeypatch)
     monkeypatch.setitem(workload.DRIVERS, "edit", _driver_with_spans)
-    # the host's profiler alone: there is no card behind is_available
-    monkeypatch.setattr(tracing, "profiler", lambda: torch.profiler.profile(
-        activities=[torch.profiler.ProfilerActivity.CPU]))
-    plain = tracing.profiler
-    out, err = io.StringIO(), io.StringIO()
-    with redirect_stdout(out), redirect_stderr(err):
-        rc = spans.main(["--workload", "edit1m", "--seed", "1"])
+    rc, line, err = _main([spans.main, "--workload", "edit1m", "--seed",
+                           "1"])
     assert rc == 0
-    line = json.loads(out.getvalue().strip().splitlines()[-1])
     assert line["correct"] is True and "breakdown" in line
     info = {k: v for k, _, v in (
         ln[len("info "):].partition(": ") for ln in
-        err.getvalue().splitlines() if ln.startswith("info "))}
-    got = ast.literal_eval(info["span_metrics"])
-    assert set(got) == {n for n, m in spans.METRICS.items()
-                        if m["cell"] == "edit1m"}
+        err.splitlines() if ln.startswith("info "))}
+    got = {k: v["value"] for k, v in line["metrics"].items()}
     assert got["host_syncs_per_step.edit"] == 1.0
     assert got["adam_ms.edit"] == 0.0          # no device on the CPU
     assert ast.literal_eval(info["host_syncs"]) == {"x": 2}
-    # the recorder is off and the harness as it was
-    assert profiling.take_spans() == []
-    assert tracing.profiler is plain
-    assert workload.DRIVERS["edit"] is _driver_with_spans
+    # the recorder is off again
+    assert profiling.take_spans() == [] and not profiling._on
+
+
+@pytest.mark.parametrize("trace", [0, 1])
+def test_the_recorder_is_on_in_traced_windows_only(monkeypatch, trace):
+    _cpu_card(monkeypatch)
+    monkeypatch.setitem(workload.DRIVERS, "edit", _driver_with_spans)
+    calls = []
+    plain = profiling.tracing
+    monkeypatch.setattr(profiling, "tracing",
+                        lambda on=True: calls.append(on) or plain(on))
+    rc, line, _ = _main([run.main, "--workload", "edit1m", "--seed", "1",
+                         "--trace", str(trace)])
+    assert rc == 0 and line["correct"] is True
+    assert calls == ([True, False] if trace else [])
+
+
+class _FakeTrace:
+    """The hand-made window of `conftest.step_spans` as a trace."""
+    busy_s, window_s, kernels = 0.5, 1.0, 40
+
+    def __init__(self):
+        self.events = tracing.Events(step_events())
+        self.program = (step_spans(), {"host_syncs": {"num_rendered": 3}})
+
+    def seconds(self, pattern):
+        return 0.01
+
+    def top_ops(self):
+        return [["k", 0.5]]
+
+    def idle_gaps(self):
+        return [["aten::item", 0.1]]
+
+
+def test_the_result_line_carries_the_cells_span_metrics(monkeypatch):
+    _cpu_card(monkeypatch)
+
+    def fake(cell):
+        r = workload.Run(setup_s=1.0, window_s=2.0, steps=3, attempted=3,
+                         trace=_FakeTrace())
+        r.checks = {k: 0.0 for k in cell.limits}
+        return r
+
+    monkeypatch.setitem(workload.DRIVERS, "edit", fake)
+    rc, line, _ = _main([run.main, "--workload", "edit1m", "--seed", "1",
+                         "--trace", "1"])
+    assert rc == 0
+    want = span_metrics("edit1m")
+    assert want and set(want) <= set(line["metrics"])
+    s = spans.Spans(step_spans(), {}, tracing.Events(step_events()))
+    got = {k: v["value"] for k, v in line["metrics"].items()}
+    assert got["adam_ms.edit"] == pytest.approx(s.device_ms("train.optim")
+                                                / 3)
+    assert got["sorted_bin_ms.edit"] == pytest.approx(
+        s.device_ms("render.bin") / 3)
+    assert got["host_syncs_per_step.edit"] == 1.0
+    assert got["idle_in_sync_pct.edit"] == s.idle_in_sync_pct("edit.step")
+    assert not set(line["metrics"]) & set(span_metrics("garden-late"))

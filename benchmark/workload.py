@@ -14,6 +14,9 @@ Which program call each driver times:
     started by `POST /edit`, and one viewer's closed loop of
     `GET /render` along a seeded orbit, client clock from send until the
     whole PNG is read.
+
+A traffic file names its driver; `driver` finds it here or in a module
+of `benchmark/ext/`.
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from benchmark import ext
 from benchmark import reference as R
 from benchmark import scene as S
 from benchmark import tracing
@@ -74,6 +78,18 @@ class Run:
     anchors: bool = False
     check_s: float = 0.0
     info: Dict[str, float] = dataclasses.field(default_factory=dict)
+    # the least seconds a step of work beyond what `counts.step_least_s`
+    # counts (render, losses, Adam), for the `mfu` kind
+    extra_least_s: float = 0.0
+    spans: Optional[object] = None      # `spans.Spans` of a traced window
+
+
+def percentile(values: list, q: float):
+    """Nearest-rank percentile."""
+    if not values:
+        return None
+    v = sorted(values)
+    return v[max(0, math.ceil(q / 100.0 * len(v)) - 1)]
 
 
 def sync(device) -> None:
@@ -634,20 +650,25 @@ def decode_png(data: Optional[bytes], size: int) -> Optional[np.ndarray]:
 def frame_checks(frames: List[Optional[np.ndarray]],
                  refs: List[torch.Tensor], run: Run) -> None:
     """Level gaps between served frames and the reference's renders
-    quantised as the server quantises them; a frame missing or not
-    decoded reads 255, and no frame compared reads a share of 1."""
+    quantised as the server quantises them: the share of channel values
+    a level or more off, a frame missing or not decoded counting all its
+    values, and no frame compared a share of 1. The largest gap is
+    `info` only: at a pixel whose Gaussians' culling or depth order turns
+    on a last bit, sound runs read it as high as the TF32 control does,
+    so it separates nothing."""
     off, total, worst = 0, 0, 0
     for got, ref in zip(frames, refs):
         want = (torch.clamp(ref, 0, 1) * 255).to(torch.uint8).cpu().numpy()
+        total += want.size
         if got is None:
+            off += want.size
             worst = 255
             continue
         d = np.abs(got.astype(np.int16) - want.astype(np.int16))
         off += int((d >= 1).sum())
-        total += d.size
         worst = max(worst, int(d.max()))
     run.checks["frame_off_share"] = off / total if total else 1.0
-    run.checks["frame_level_max"] = float(worst)
+    run.info["frame_level_max"] = float(worst)
 
 
 def lpips_npz_dir() -> str:
@@ -830,3 +851,9 @@ def webui(cell: Cell) -> Run:
 
 
 DRIVERS = {"edit": edit, "recon": recon, "webui": webui}
+
+
+def driver(name: str) -> Callable[[Cell], Run]:
+    """The driver `name`, of `DRIVERS` or of a module of `benchmark/ext/`;
+    `LookupError` for a name neither defines."""
+    return ext.lookup("DRIVERS", name, DRIVERS)
