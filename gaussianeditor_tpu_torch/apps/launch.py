@@ -29,8 +29,10 @@ Guidance, segmentation and inpainting take the fakes of
 `guidance/diffusers_adapters.py` (`ip2p`, `controlnet[-<type>]`,
 `langsam`, and `controlnet` or `sdxl` as an inpainter) on the config's
 device; those raise the JAX CLI's ImportError where diffusers (or
-lang-segment-anything) is missing. Add takes the Wonder3D adapter with
-`wonder3d_root` and the DPT depth estimator with `dpt: true`.
+lang-segment-anything) is missing. `ip2p` with `guidance_kwargs.native`
+runs the port's own SD-1.5 pipeline instead (`guidance/sd15.py`). Add
+takes the Wonder3D adapter with `wonder3d_root` and the DPT depth
+estimator with `dpt: true`.
 """
 
 from __future__ import annotations
@@ -61,7 +63,10 @@ def build_guidance(name: str, cfg: dict):
     """The JAX CLI's guidance by name: 'fake', 'ip2p' or
     'controlnet[-<control type>]'. The diffusion adapters run on the
     config's `device` unless `guidance_kwargs` names one; without
-    diffusers they raise ImportError."""
+    diffusers they raise ImportError. 'ip2p' with `guidance_kwargs.native`
+    runs the port's own pipeline (`guidance/sd15.py`, no diffusers):
+    `native` holds `build_pipeline`'s arguments, say `{seed: 0}` for
+    seeded weights or `{weights: PATH}` for a saved state dict."""
     if name == "fake":
         from gaussianeditor_tpu_torch.guidance.fake import FakeGuidance
 
@@ -73,6 +78,12 @@ def build_guidance(name: str, cfg: dict):
             InstructPix2PixGuidance,
         )
 
+        native = kwargs.pop("native", None)
+        if native is not None:
+            from gaussianeditor_tpu_torch.guidance.sd15 import build_pipeline
+
+            kwargs["pipe"] = build_pipeline(
+                **{"device": kwargs["device"], **native})
         return InstructPix2PixGuidance(**kwargs)
     if name.startswith("controlnet"):
         from gaussianeditor_tpu_torch.guidance.diffusers_adapters import (

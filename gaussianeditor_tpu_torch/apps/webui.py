@@ -38,7 +38,12 @@ never the training state's (see `WebUIState`).
 
     python -m gaussianeditor_tpu_torch.apps.webui --gs_source scene.ply \
         --colmap_dir workspace [--port 8084] [--device cuda] \
-        [--guidance fake | ip2p | controlnet[-<type>]] [--dispatch_burst 1]
+        [--guidance fake | ip2p | controlnet[-<type>]] \
+        [--guidance_kwargs JSON] [--segmentor fake | langsam] \
+        [--dispatch_burst 1]
+
+`--guidance ip2p --guidance_kwargs '{"native": {"seed": 0}}'` edits with
+the port's own InstructPix2Pix pipeline on seeded weights.
 """
 
 from __future__ import annotations
@@ -801,16 +806,26 @@ def main(argv=None):
     p.add_argument("--port", type=int, default=8084)
     p.add_argument("--device", default="cuda")
     p.add_argument("--guidance", default="fake")
+    p.add_argument("--guidance_kwargs", default="{}",
+                   help="JSON: the guidance's arguments, as a config's "
+                        "guidance_kwargs (ip2p: {\"native\": {\"seed\": 0}} "
+                        "runs the port's own pipeline)")
+    p.add_argument("--segmentor", default=None,
+                   help="fake or langsam (default: fake with the fake "
+                        "guidance, else langsam)")
     p.add_argument("--dispatch_burst", type=int, default=1,
                    help="EditConfig.dispatch_burst; the port trains one "
                         "step a call whatever it says (values > 1 warn)")
     args = p.parse_args(argv)
 
+    seg = args.segmentor or ("fake" if args.guidance == "fake" else "langsam")
     state = build_state(
         args.gs_source, args.colmap_dir, args.device,
-        guidance=build_guidance(args.guidance, {"device": args.device}),
-        segmentor=FakeSegmentor() if args.guidance == "fake"
-        else build_segmentor("langsam", args.device),
+        guidance=build_guidance(args.guidance, {
+            "device": args.device,
+            "guidance_kwargs": json.loads(args.guidance_kwargs)}),
+        segmentor=FakeSegmentor() if seg == "fake"
+        else build_segmentor(seg, args.device),
     )
     state.update_config({"dispatch_burst": args.dispatch_burst})
     serve(state, args.port)

@@ -21,7 +21,8 @@ What differs from the JAX system:
     bursts) runs the per-step loop, with a warning.
   * Host traffic per step: the target upload, the train step's
     `num_rendered` reads, and one device-to-host copy for each view whose
-    target is refreshed. The overflow flag is read once, after the loop.
+    target is refreshed (span `guidance.refresh`, rid: the view). The
+    overflow flag is read once, after the loop.
 """
 
 from __future__ import annotations
@@ -390,13 +391,15 @@ class EditSystem:
             return fn(*args)
         return self._guidance_submit(fn, *args).result()
 
-    def _gen_target(self, current: torch.Tensor, origin: np.ndarray):
+    def _gen_target(self, current: torch.Tensor, origin: np.ndarray,
+                    vid: Optional[int] = None):
         # `current` is left on the device: on the async path its copy to
         # the host happens on the guidance worker, not in the train loop
-        with sync("target", current.numel() * current.element_size()):
-            current = current.cpu().numpy()
-        out = self.guidance(current, origin, self.cfg.prompt)
-        return np.asarray(out.edit_image, np.float32)
+        with span("guidance.refresh", rid=vid):
+            with sync("target", current.numel() * current.element_size()):
+                current = current.cpu().numpy()
+            out = self.guidance(current, origin, self.cfg.prompt)
+            return np.asarray(out.edit_image, np.float32)
 
     def _refresh_targets(self, view_ids: List[int], step: int) -> None:
         if self.guidance is None:
@@ -422,13 +425,12 @@ class EditSystem:
                 # until it lands
                 if vid not in self._pending_targets:
                     self._pending_targets[vid] = self._guidance_submit(
-                        self._gen_target, current, self._origin_frame(vid)
-                    )
+                        self._gen_target, current, self._origin_frame(vid),
+                        vid)
             else:
                 # a first touch must block, still through the one worker
                 self.edit_frames[vid] = self._guidance_call(
-                    self._gen_target, current, self._origin_frame(vid)
-                )
+                    self._gen_target, current, self._origin_frame(vid), vid)
 
     def _score_inject(self, view_ids: List[int], step: int) -> torch.Tensor:
         """Host-side SDS/DDS image gradients for the batch, weighted by

@@ -26,7 +26,11 @@ and keep the port's `GuidanceOutput`, `Segmentor` and `Inpainter`
 protocols (`guidance/base.py`). Without `diffusers` (or, for LangSAM,
 `lang-segment-anything`) construction raises the JAX module's
 ImportError; `guidance.fake` holds the deterministic stand-ins. A
-`pipe=` argument injects a pipeline (tests use stand-ins).
+`pipe=` argument injects a pipeline: tests use stand-ins, and the CLI
+the port's own InstructPix2Pix (`guidance/sd15.py`), from whose
+`generator` the adapter draws t and the noise. Spans `ip2p.vae`,
+`ip2p.unet` and `ip2p.ddim` and the counter `unet_evals` mark the edit's
+parts (`utils/profiling.py`).
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ import numpy as np
 import torch
 
 from gaussianeditor_tpu_torch.guidance.base import GuidanceOutput
+from gaussianeditor_tpu_torch.utils.profiling import count, span, sync
 
 _INSTALL_MSG = (
     "diffusers is not available in this environment. Install `diffusers` "
@@ -98,6 +103,26 @@ class InstructPix2PixGuidance:
             self.pipe.scheduler.config.num_train_timesteps
         )
 
+    def _generator(self) -> Optional[torch.Generator]:
+        """The pipeline's generator (the native pipeline's), or None for
+        torch's global one."""
+        return getattr(self.pipe, "generator", None)
+
+    def _draw_t(self, min_t: int, max_t: int) -> int:
+        gen = self._generator()
+        if gen is None:
+            return int(torch.randint(min_t, max_t + 1, (1,)).item())
+        with sync("ddim_t"):
+            return int(torch.randint(min_t, max_t + 1, (1,), generator=gen,
+                                     device=gen.device).item())
+
+    def _noise(self, like: torch.Tensor) -> torch.Tensor:
+        gen = self._generator()
+        if gen is None:
+            return torch.randn_like(like)
+        return torch.randn(like.shape, generator=gen, dtype=torch.float32,
+                           device=like.device).to(like.dtype)
+
     def __call__(self, rgb, cond_rgb, prompt: str) -> GuidanceOutput:
         # sample t against the TRUE training range captured at init: the
         # per-call num_train_timesteps override below must not leak into
@@ -105,19 +130,23 @@ class InstructPix2PixGuidance:
         num_train = self.num_train_timesteps
         min_t = int(num_train * self.min_step_percent)
         max_t = int(num_train * self.max_step_percent)
-        t = int(torch.randint(min_t, max_t + 1, (1,)).item())
+        t = self._draw_t(min_t, max_t)
+        vae, sched = self.pipe.vae, self.pipe.scheduler
+        unet_dtype = getattr(self.pipe.unet, "dtype", vae.dtype)
 
         def to_t(img):
             x = torch.from_numpy(np.asarray(img, np.float32)).permute(2, 0, 1)
-            return x[None].to(self.device, dtype=self.pipe.vae.dtype)
+            return x[None].to(self.device, dtype=vae.dtype)
 
         with torch.no_grad():
-            latents = self.pipe.vae.encode(
-                to_t(rgb) * 2 - 1
-            ).latent_dist.sample() * self.pipe.vae.config.scaling_factor
-            cond_latents = self.pipe.vae.encode(
-                to_t(cond_rgb) * 2 - 1
-            ).latent_dist.mode()
+            # latents in float32 between the UNet's calls, as threestudio
+            # holds them (`encode_images` returns the input's dtype)
+            with span("ip2p.vae"):
+                latents = (vae.encode(to_t(rgb) * 2 - 1).latent_dist.sample()
+                           * vae.config.scaling_factor).float()
+            with span("ip2p.vae"):
+                cond_latents = vae.encode(
+                    to_t(cond_rgb) * 2 - 1).latent_dist.mode().float()
 
             text_emb = self.pipe._encode_prompt(
                 prompt, self.device, 1, True, ""
@@ -129,38 +158,41 @@ class InstructPix2PixGuidance:
             # scheduler's training range clobbered at the sampled t for
             # every subsequent call.
             try:
-                self.pipe.scheduler.config.num_train_timesteps = t
-                self.pipe.scheduler.set_timesteps(self.diffusion_steps)
-                noise = torch.randn_like(latents)
-                latents = self.pipe.scheduler.add_noise(
-                    latents, noise, self.pipe.scheduler.timesteps[0:1]
-                )
-                for step_t in self.pipe.scheduler.timesteps:
-                    latent_in = torch.cat([latents] * 3)
-                    latent_in = torch.cat(
-                        [latent_in, torch.cat([cond_latents, cond_latents,
-                                               torch.zeros_like(cond_latents)])],
-                        dim=1,
-                    )
-                    noise_pred = self.pipe.unet(
-                        latent_in, step_t, encoder_hidden_states=text_emb
+                sched.config.num_train_timesteps = t
+                with span("ip2p.ddim"):
+                    sched.set_timesteps(self.diffusion_steps)
+                    latents = sched.add_noise(latents, self._noise(latents),
+                                              sched.timesteps[0:1])
+                    image_cond = torch.cat([cond_latents, cond_latents,
+                                            torch.zeros_like(cond_latents)])
+                for i, step_t in enumerate(sched.timesteps):
+                    with span("ip2p.unet", rid=i):
+                        latent_in = torch.cat(
+                            [torch.cat([latents] * 3), image_cond], dim=1)
+                        noise_pred = self.pipe.unet(
+                            latent_in.to(unet_dtype), step_t,
+                            encoder_hidden_states=text_emb
+                        ).sample.float()
+                    count("unet_evals")
+                    with span("ip2p.ddim"):
+                        n_text, n_img, n_unc = noise_pred.chunk(3)
+                        noise_pred = (
+                            n_unc
+                            + self.guidance_scale * (n_text - n_img)
+                            + self.image_guidance_scale * (n_img - n_unc)
+                        )
+                        latents = sched.step(
+                            noise_pred, step_t, latents
+                        ).prev_sample
+                with span("ip2p.vae"):
+                    img = vae.decode(
+                        latents / vae.config.scaling_factor
                     ).sample
-                    n_text, n_img, n_unc = noise_pred.chunk(3)
-                    noise_pred = (
-                        n_unc
-                        + self.guidance_scale * (n_text - n_img)
-                        + self.image_guidance_scale * (n_img - n_unc)
-                    )
-                    latents = self.pipe.scheduler.step(
-                        noise_pred, step_t, latents
-                    ).prev_sample
-                img = self.pipe.vae.decode(
-                    latents / self.pipe.vae.config.scaling_factor
-                ).sample
             finally:
-                self.pipe.scheduler.config.num_train_timesteps = num_train
-        out = ((img / 2 + 0.5).clamp(0, 1)[0].permute(1, 2, 0)
-               .float().cpu().numpy())
+                sched.config.num_train_timesteps = num_train
+            img = (img / 2 + 0.5).clamp(0, 1)[0].permute(1, 2, 0).float()
+            with sync("edit_image", img.numel() * img.element_size()):
+                out = img.cpu().numpy()
         return GuidanceOutput(edit_image=out)
 
     def sds_image_grad(self, rgb, cond_rgb, prompt: str, step: int = 0,
@@ -177,7 +209,9 @@ class InstructPix2PixGuidance:
         num_train = self.num_train_timesteps
         min_t = int(num_train * self.min_step_percent)
         max_t = int(num_train * self.max_step_percent)
-        t = torch.randint(min_t, max_t + 1, (1,), device=self.device)
+        gen = self._generator()
+        t = torch.randint(min_t, max_t + 1, (1,), generator=gen,
+                          device=self.device if gen is None else gen.device)
 
         img_t = (
             torch.from_numpy(np.asarray(rgb, np.float32))
@@ -198,7 +232,7 @@ class InstructPix2PixGuidance:
             text_emb = self.pipe._encode_prompt(
                 prompt, self.device, 1, True, ""
             )
-            noise = torch.randn_like(latents)
+            noise = self._noise(latents)
             noisy = sched.add_noise(latents.detach(), noise, t)
             latent_in = torch.cat([noisy] * 3)
             latent_in = torch.cat(

@@ -35,6 +35,9 @@ Counters. `COUNTERS` holds, for the life of the process:
     `train/trainer.py::upload_images` and device to host at the sync
     sites that copy data back.
   * `spans_dropped`.
+  * `unet_evals`: the diffusion UNet's calls (`count`), one per batch of
+    the guidance's 3-way classifier-free guidance
+    (`guidance/diffusers_adapters.py`), whether tracing is on or off.
 `counters()` returns a copy; a reader takes the difference of two.
 """
 
@@ -51,7 +54,7 @@ from typing import Dict, List, NamedTuple, Optional
 SPAN_LIMIT = 1 << 20
 
 COUNTERS: Dict = {"host_syncs": {}, "h2d_bytes": 0, "d2h_bytes": 0,
-                  "spans_dropped": 0}
+                  "spans_dropped": 0, "unet_evals": 0}
 
 
 class StepTimer:
@@ -174,6 +177,12 @@ def sync(site: str, d2h_bytes: int = 0):
 def add_h2d_bytes(n: int) -> None:
     with _lock:
         COUNTERS["h2d_bytes"] += int(n)
+
+
+def count(name: str) -> None:
+    """Add one to the counter `name`."""
+    with _lock:
+        COUNTERS[name] += 1
 
 
 def tracing(on: bool = True) -> None:

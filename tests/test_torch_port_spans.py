@@ -22,6 +22,7 @@ from gaussianeditor_tpu_torch.apps import launch
 from gaussianeditor_tpu_torch.apps.webui import WebUIState, serve
 from gaussianeditor_tpu_torch.core.cameras import lookat_camera, orbit_cameras
 from gaussianeditor_tpu_torch.edit.edit_system import EditConfig, EditSystem
+from gaussianeditor_tpu_torch.guidance import sd15_ref
 from gaussianeditor_tpu_torch.guidance.fake import FakeGuidance
 from gaussianeditor_tpu_torch.models.gaussians import GaussianScene
 from gaussianeditor_tpu_torch.ops.render import render
@@ -193,6 +194,61 @@ def _edit_system():
                       guidance=FakeGuidance(), perceptual=None)
 
 
+def _ip2p_system():
+    """An edit whose one view is refreshed at its first step through the
+    port's own InstructPix2Pix pipeline, at a small size in float32."""
+    unet = dict(sd15_ref.UNET, block_out_channels=(32, 64, 64),
+                cross_attention_dim=16, attention_head_dim=2,
+                norm_num_groups=8)
+    vae = dict(sd15_ref.VAE, block_out_channels=(16, 16, 32, 32),
+               layers_per_block=1, norm_num_groups=8)
+    g = launch.build_guidance("ip2p", {"device": "cpu", "guidance_kwargs": {
+        "native": dict(seed=1, unet_dtype="float32", vae_dtype="float32",
+                       unet_config=unet, vae_config=vae)}})
+    cfg = EditConfig(prompt="p", batch_size=1, max_steps=1,
+                     per_editing_step=1, edit_until_step=10,
+                     cameras_extent=2.0, max_instances=8192, seed=3)
+    cams = orbit_cameras(2, 4.0, 0.8, 0.8, 32, 32, device="cpu")
+    return EditSystem(_scene(60, "cpu", capacity=96), cams, cfg,
+                      guidance=g, perceptual=None)
+
+
+@pytest.mark.parametrize("on", [False, True], ids=["off", "on"])
+def test_a_refresh_opens_its_spans(on):
+    """`guidance.refresh` (rid: the view) inside `edit.targets`, holding
+    the render's read-back, the VAE's two encodes and decode, the 20 UNet
+    calls (rid: the DDIM index) and the scheduler's updates; the UNet
+    counter rises by 20 whether tracing is on or off."""
+    system = _ip2p_system()
+    system.on_fit_start()
+    profiling.take_spans()
+    before = profiling.counters()["unet_evals"]
+    profiling.tracing(on)
+    try:
+        system.fit(n_steps=1)
+    finally:
+        profiling.tracing(False)
+    spans = profiling.take_spans()
+    assert profiling.counters()["unet_evals"] - before == 20
+    if not on:
+        assert spans == []
+        return
+    by_id = {s.id: s for s in spans}
+    (refresh,) = [s for s in spans if s.name == "guidance.refresh"]
+    assert by_id[refresh.parent].name == "edit.targets"
+    assert refresh.rid in (0, 1)
+    kids = _children(spans, refresh)
+    assert kids.count("sync.target") == 1
+    assert kids.count("ip2p.vae") == 3
+    assert kids.count("ip2p.unet") == 20
+    assert kids.count("ip2p.ddim") == 21
+    unet = sorted((s for s in spans if s.name == "ip2p.unet"),
+                  key=lambda s: s.start_ns)
+    assert [s.rid for s in unet] == list(range(20))
+    assert all(refresh.start_ns <= s.start_ns and s.end_ns <= refresh.end_ns
+               for s in spans if s.name.startswith("ip2p."))
+
+
 def test_edit_steps_span_tree_and_bitwise_repeat():
     runs = {}
     for on in (False, True):
@@ -240,8 +296,11 @@ def test_edit_steps_span_tree_and_bitwise_repeat():
     assert len(by_name["train.loss"]) == 6
     assert len(by_name["composite.backward"]) == 6
     assert len(by_name["sync.densify"]) == 1
+    # every span takes its parent's rid but a refresh, whose rid is the
+    # view it refreshes (four views, each refreshed at its first touch)
+    assert sorted(s.rid for s in by_name["guidance.refresh"]) == [0, 1, 2, 3]
     assert all(s.rid == by_id[s.parent].rid for s in spans
-               if s.parent is not None)
+               if s.parent is not None and s.name != "guidance.refresh")
 
 
 def test_web_ui_frame_spans(traced):

@@ -339,15 +339,31 @@ def test_served_frames_are_whole_steps():
         assert torch.equal(a, b)
 
 
+NATIVE = json.dumps({"native": {
+    "seed": 0, "unet_dtype": "float32", "vae_dtype": "float32",
+    "unet_config": {"in_channels": 8, "out_channels": 4,
+                    "block_out_channels": [32, 64], "layers_per_block": 1,
+                    "cross_attention_dim": 16, "attention_head_dim": 2,
+                    "norm_num_groups": 8, "norm_eps": 1e-5},
+    "vae_config": {"in_channels": 3, "out_channels": 3,
+                   "block_out_channels": [16, 16], "layers_per_block": 1,
+                   "latent_channels": 4, "norm_num_groups": 8,
+                   "scaling_factor": 0.18215}}})
+
+
 @pytest.mark.parametrize("args,want", [
     (["--device", "cpu", "--dispatch_burst", "3"], "fake"),
     (["--device", "cpu", "--guidance", "ip2p"], ImportError),
+    (["--device", "cpu", "--guidance", "ip2p", "--guidance_kwargs", NATIVE,
+      "--segmentor", "fake"], "native"),
     (["--device", "cuda"], RuntimeError),
-], ids=["fake_cpu", "ip2p_without_diffusers", "cuda_without_a_card"])
+], ids=["fake_cpu", "ip2p_without_diffusers", "ip2p_native",
+        "cuda_without_a_card"])
 def test_main_flags(tmp_path, monkeypatch, args, want):
     """`main` builds the JAX viewer's guidance and segmentor by name and
     sets `dispatch_burst`; the diffusers names raise the JAX ImportError
-    without diffusers, and a CUDA device that is missing raises (no
+    without diffusers, but ip2p with `native` guidance arguments runs the
+    port's own pipeline; a CUDA device that is missing raises (no
     fallback to the CPU)."""
     from gaussianeditor_tpu_torch.apps import webui
     from gaussianeditor_tpu_torch.models.ply import save_ply
@@ -362,7 +378,7 @@ def test_main_flags(tmp_path, monkeypatch, args, want):
     monkeypatch.setattr(webui, "serve", lambda state, port: served.append(
         (state, port)))
     argv = ["--gs_source", ply, "--colmap_dir", ws, "--port", "0"] + args
-    if want != "fake":
+    if want not in ("fake", "native"):
         with pytest.raises(want):
             webui.main(argv)
         assert not served
@@ -370,8 +386,13 @@ def test_main_flags(tmp_path, monkeypatch, args, want):
     webui.main(argv)
     (state, port), = served
     assert port == 0 and state.scene.capacity == 80
-    assert isinstance(state.guidance, fake.FakeGuidance)
     assert isinstance(state.segmentor, fake.FakeSegmentor)
+    if want == "native":
+        from gaussianeditor_tpu_torch.guidance import sd15
+
+        assert isinstance(state.guidance.pipe, sd15.InstructPix2PixPipeline)
+        return
+    assert isinstance(state.guidance, fake.FakeGuidance)
     assert state.edit_config.dispatch_burst == 3
     assert state.edit_config.cameras_extent == state.cameras_extent
     assert (state.cameras[0].height, state.cameras[0].width) == (512, 512)
